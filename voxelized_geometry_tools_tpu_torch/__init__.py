@@ -1,0 +1,22 @@
+"""voxelized_geometry_tools_tpu_torch: the PyTorch/CUDA port of
+``voxelized_geometry_tools_tpu``.
+
+The package mirrors the JAX package's layout (``core/``, ``ops/``,
+``kernels/``) and public names. It imports ``torch`` and numpy and never
+``jax``: plain tensor code is PyTorch, and the one Pallas kernel on the main
+path (the best-first parabolic-envelope EDT pass) is a hand-written CUDA
+kernel for Hopper (``kernels/csrc/edt_bestfirst.cu``), built with ``nvcc``
+at first use. Every function runs on the device of its input tensors.
+
+Ported so far (the main path): exact two-field EDT -> SignedDistanceField
+-> corner-brick table -> sphere-traced depth render (fixed-step and
+early-exit marches), differentiable in voxel values and camera pose.
+"""
+
+from .core.grid import GridSpec
+from .core.maps import FREE, UNKNOWN, FILLED, OccupancyMap, SignedDistanceField
+
+__all__ = [
+    "GridSpec", "FREE", "UNKNOWN", "FILLED", "OccupancyMap",
+    "SignedDistanceField",
+]

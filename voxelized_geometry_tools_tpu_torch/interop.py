@@ -1,0 +1,67 @@
+"""Build the port's objects from the JAX package's state, given as numpy
+arrays and plain Python fields (``np.asarray`` on each JAX leaf), so that
+both packages compute on the same state. Arrays are copied (numpy views of
+JAX arrays are read-only). Imports no JAX."""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from .core.grid import GridSpec
+from .core.maps import SignedDistanceField
+from .ops.render import PinholeCamera
+from .ops.sdf_query import CornerTable
+
+
+def grid_spec_from_fields(counts: Sequence[int], resolution: float,
+                          voxel_sizes: Optional[Sequence[float]] = None
+                          ) -> GridSpec:
+    """``GridSpec`` from a JAX ``GridSpec``'s ``counts``, ``resolution`` and
+    ``voxel_sizes``."""
+    return GridSpec(tuple(int(c) for c in counts), float(resolution),
+                    voxel_sizes=None if voxel_sizes is None
+                    else tuple(float(s) for s in voxel_sizes))
+
+
+def sdf_from_numpy(spec: GridSpec, distances: np.ndarray,
+                   origin_transform: np.ndarray, frame: str = "",
+                   locked: bool = False, oob_value: float = float("inf"),
+                   minimum=None, maximum=None,
+                   device=None) -> SignedDistanceField:
+    """A ``SignedDistanceField`` holding the given arrays as they are (same
+    dtype). A locked field keeps the given ``minimum``/``maximum`` when
+    both are passed, else recomputes them."""
+    dist = torch.tensor(np.asarray(distances), device=device)
+    sdf = SignedDistanceField.create(
+        spec, dist, origin_transform=np.asarray(origin_transform),
+        frame=frame, oob_value=oob_value, dtype=dist.dtype)
+    if not locked:
+        return sdf
+    if minimum is None or maximum is None:
+        return sdf.lock()
+    return sdf.replace(
+        minimum=torch.tensor(np.asarray(minimum), dtype=dist.dtype,
+                             device=dist.device),
+        maximum=torch.tensor(np.asarray(maximum), dtype=dist.dtype,
+                             device=dist.device),
+        locked=True)
+
+
+def camera_from_numpy(pose: np.ndarray, fx, fy, cx, cy, width: int,
+                      height: int, device=None) -> PinholeCamera:
+    """A ``PinholeCamera`` from a JAX camera's leaves and static fields."""
+    return PinholeCamera.create(np.asarray(pose, np.float32), width, height,
+                                fx=float(fx), fy=float(fy), cx=float(cx),
+                                cy=float(cy), device=device)
+
+
+def corner_table_from_numpy(rows: np.ndarray, device=None) -> CornerTable:
+    """A ``CornerTable`` from a JAX ``CornerTable.rows``."""
+    rows = np.asarray(rows)
+    if rows.ndim != 2 or rows.shape[1] != 8:
+        raise ValueError(f"corner table rows must be [N, 8], got "
+                         f"{rows.shape}")
+    return CornerTable(rows=torch.tensor(rows, device=device))

@@ -1,0 +1,7 @@
+"""Hand-written Hopper kernels, each beside its plain PyTorch version.
+
+Sources live in ``csrc/`` and are compiled with ``nvcc`` at first launch
+(:mod:`.build`); importing this package builds nothing.
+"""
+
+from . import edt_bestfirst  # noqa: F401
