@@ -2,20 +2,26 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from the checkout, checks it bit for bit
-against its plain PyTorch version, then drives the main path at full size
-(512^3 two-field EDT -> corner table -> 640x480 sphere-traced renders, the
-scene and camera of bench.py) and the differentiable ``entry()``, checking
-every result. Prints human-readable lines, then a JSON line describing each
-kernel, then ``{"ok": true, "device": ...}`` as the last line. Any failure
-raises, and the script exits non-zero; without a CUDA card it exits
-non-zero before doing anything.
+Builds the port's CUDA kernels from the checkout (one nvcc per source, in
+parallel), checks each bit for bit against its plain PyTorch version, then
+drives the main path at full size (512^3 two-field EDT -> corner table ->
+640x480 sphere-traced renders, the scene and camera of bench.py) and the
+differentiable ``entry()``, checking every result. Then it drives every
+other EDT backend through the same 512^3 EDT, and the large-grid path: a
+1024^3 signed EDT that takes the slab-streamed pipeline on its own, and a
+render from it without a corner table. Prints human-readable lines, then a
+JSON line describing each kernel, then ``{"ok": true, "device": ...}`` as
+the last line. Any failure raises, and the script exits non-zero; without
+a CUDA card it exits non-zero before doing anything.
 """
 
+import contextlib
+import functools
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -24,8 +30,24 @@ GRID_N = 512
 RESOLUTION = 0.01
 IMG_W, IMG_H = 640, 480
 NUM_STEPS = 64
-KERNEL_SOURCE = "voxelized_geometry_tools_tpu_torch/kernels/csrc/edt_bestfirst.cu"
-KERNEL_REPLACES = "voxelized_geometry_tools_tpu/kernels/edt_pallas.py:301"
+LARGE_N = 1024
+CSRC = "voxelized_geometry_tools_tpu_torch/kernels/csrc/"
+PALLAS = "voxelized_geometry_tools_tpu/kernels/edt_pallas.py:"
+# Each kernel of the port: (source, the TPU kernel it replaces, the backend
+# that runs it through the EDT).
+KERNELS = {
+    "edt_bestfirst": (CSRC + "edt_bestfirst.cu", PALLAS + "301",
+                      "cuda-bestfirst"),
+    "edt_bestfirst_inkernel": (CSRC + "edt_bestfirst.cu", PALLAS + "241",
+                               "cuda-bestfirst"),
+    "edt_envelope": (CSRC + "edt_envelope.cu", PALLAS + "111",
+                     "cuda-envelope"),
+    "edt_windowed": (CSRC + "edt_windowed.cu", PALLAS + "161",
+                     "cuda-windowed"),
+}
+LIBRARIES = ("edt_bestfirst", "edt_envelope", "edt_windowed")
+# Peak device memory allowed for the streamed 1024^3 signed EDT.
+STREAMED_PEAK_GIB = 20.0
 # Render contract (as tests/test_torch_render.py): depth within 1e-4 m on
 # common hits; hit flips only on tangent grazers, at most 0.5% of pixels.
 DEPTH_ATOL = 1e-4
@@ -73,22 +95,59 @@ def phase_device():
     return name
 
 
+def kernel_modules():
+    from voxelized_geometry_tools_tpu_torch.kernels import (
+        edt_bestfirst, edt_envelope, edt_windowed)
+    return edt_bestfirst, edt_envelope, edt_windowed
+
+
+def kernel_fns():
+    """Each kernel's wrapper, by the names of ``KERNELS``."""
+    eb, ee, ew = kernel_modules()
+    return {
+        "edt_bestfirst": eb.parabolic_envelope_last,
+        "edt_bestfirst_inkernel": functools.partial(
+            eb.parabolic_envelope_last, hoist_cmin=False),
+        "edt_envelope": ee.parabolic_envelope_last,
+        "edt_windowed": ew.parabolic_envelope_last,
+    }
+
+
+def reset_launches():
+    eb, ee, ew = kernel_modules()
+    eb.launches = eb.launches_inkernel = ee.launches = ew.launches = 0
+
+
+def read_launches():
+    eb, ee, ew = kernel_modules()
+    return {"edt_bestfirst": eb.launches,
+            "edt_bestfirst_inkernel": eb.launches_inkernel,
+            "edt_envelope": ee.launches, "edt_windowed": ew.launches}
+
+
 def phase_build():
-    from voxelized_geometry_tools_tpu_torch.kernels import build, edt_bestfirst
+    from voxelized_geometry_tools_tpu_torch.kernels import build
+    eb, ee, ew = kernel_modules()
     t0 = time.monotonic()
-    edt_bestfirst._launcher()
-    log(f"build: edt_bestfirst in {time.monotonic() - t0:.2f} s")
-    ptxas = build.library_path("edt_bestfirst").with_suffix(".log")
-    if ptxas.exists():
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        paths = list(pool.map(build.build, LIBRARIES))
+    for mod in (eb, ee, ew):
+        mod._launcher()
+    log(f"build: {', '.join(LIBRARIES)} in {time.monotonic() - t0:.2f} s "
+        "(in parallel)")
+    for name, path in zip(LIBRARIES, paths):
+        ptxas = path.with_suffix(".log")
+        if not ptxas.exists():
+            continue
         for line in ptxas.read_text().splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"  ptxas: {line.strip()}")
+            if ("registers" in line or "spill" in line or "smem" in line
+                    or "entry function" in line):
+                log(f"  ptxas {name}: {line.strip()}")
 
 
-def phase_kernel_vs_plain():
-    """Bitwise on random fields (+inf, negative values), degenerate fields,
-    n in {37, 300, 512, 513}, ragged line counts and strided layouts."""
-    from voxelized_geometry_tools_tpu_torch.kernels import edt_bestfirst as k
+def envelope_cases():
+    """Random fields (+inf, negative values), degenerate fields, n in {37,
+    300, 512, 513}, ragged line counts and strided layouts."""
     rng = np.random.default_rng(0)
     cases = []
     for n in (37, 300, 512, 513):
@@ -104,17 +163,52 @@ def phase_kernel_vs_plain():
     for fill in (np.inf, 0.0, 1e6, -3.0):
         cases.append((f"fill={fill}",
                       torch.full((6, 40, 129), fill, device="cuda")))
-    worst = 0.0
-    for name, f in cases:
-        got = k.parabolic_envelope_last(f)
-        ref = k.parabolic_envelope_last_plain(f)
-        torch.cuda.synchronize()
-        err = max_abs_err(got, ref)
-        worst = max(worst, err)
-        if not torch.equal(got, ref):
-            raise AssertionError(f"kernel != plain on {name}: max abs err "
-                                 f"{err}")
-    log(f"kernel vs plain: {len(cases)} cases bitwise equal")
+    return cases
+
+
+def nonneg_envelope_cases():
+    """The cases the windowed kernel is exact on (f >= 0): random fields
+    with +inf holes and whole +inf lines, sparse seeds in the moved layout,
+    and the non-negative fills."""
+    rng = np.random.default_rng(1)
+    cases = []
+    for n in (37, 300, 512, 513):
+        for shape in [(n,), (77, n), (3, 45, n), (2, 1000, n)]:
+            f = rng.uniform(0.0, 400.0, shape).astype(np.float32)
+            f[rng.uniform(size=shape) < 0.5] = np.inf
+            if len(shape) > 1:
+                f[..., rng.uniform(size=shape[-2]) < 0.2, :] = np.inf
+            cases.append((f"nonneg{shape}", torch.from_numpy(f).cuda()))
+        sparse = np.where(rng.random((5, n, 70)) < 0.01, 0.0, np.inf)
+        x = torch.from_numpy(sparse.astype(np.float32)).cuda()
+        cases.append((f"sparse-seeds-moved(5,70,{n})", x.movedim(1, -1)))
+    for fill in (np.inf, 0.0, 1e6):
+        cases.append((f"fill={fill}",
+                      torch.full((6, 40, 129), fill, device="cuda")))
+    return cases
+
+
+def phase_kernel_vs_plain():
+    """Every kernel bitwise against the plain version; the windowed kernel
+    on f >= 0 only. Returns the largest error per kernel."""
+    from voxelized_geometry_tools_tpu_torch.kernels import edt_bestfirst as k
+    signed, nonneg = envelope_cases(), nonneg_envelope_cases()
+    refs = [k.parabolic_envelope_last_plain(f) for _, f in signed + nonneg]
+    worst = {}
+    for kname, fn in kernel_fns().items():
+        cases = list(zip(signed + nonneg, refs))
+        if kname == "edt_windowed":
+            cases = cases[len(signed):]
+        worst[kname] = 0.0
+        for (name, f), ref in cases:
+            got = fn(f)
+            torch.cuda.synchronize()
+            err = max_abs_err(got, ref)
+            worst[kname] = max(worst[kname], err)
+            if not torch.equal(got, ref):
+                raise AssertionError(f"{kname} != plain on {name}: max abs "
+                                     f"err {err}")
+        log(f"kernel vs plain: {kname}: {len(cases)} cases bitwise equal")
     return worst
 
 
@@ -128,7 +222,6 @@ def sphere_mask(n, device):
 def phase_main_path():
     """The main path at full size, with every launch count reset first."""
     from voxelized_geometry_tools_tpu_torch import GridSpec
-    from voxelized_geometry_tools_tpu_torch.kernels import edt_bestfirst
     from voxelized_geometry_tools_tpu_torch.ops import edt, render, sdf_query
 
     spec = GridSpec.from_voxel_counts(RESOLUTION, (GRID_N,) * 3)
@@ -140,7 +233,7 @@ def phase_main_path():
                                          device="cuda")
     torch.cuda.synchronize()
 
-    edt_bestfirst.launches = 0
+    reset_launches()
     with torch.no_grad():
         sdf = edt.extract_signed_distance_field(mask, spec, None,
                                                 frame="bench")
@@ -151,11 +244,14 @@ def phase_main_path():
                                     corner_table=table, early_exit=True,
                                     tail_chunks=1)
     torch.cuda.synchronize()
-    launches = edt_bestfirst.launches
-    log(f"main path: edt_bestfirst launches = {launches}")
+    counts = read_launches()
+    launches = counts["edt_bestfirst"]
+    log(f"main path: launches {counts}")
     if launches != 2:
         raise AssertionError(f"the {GRID_N}^3 EDT launched the kernel {launches} "
                              "times, expected 2 (y and z passes)")
+    if sum(counts.values()) != launches:
+        raise AssertionError(f"the main path launched another kernel: {counts}")
     return spec, mask, sdf, table, camera, fixed, early, launches
 
 
@@ -207,6 +303,190 @@ def phase_edt_checks(mask, sdf):
     log(f"edt {GRID_N}^3 two-field: {GRID_N ** 3 / (t['edt_total'] / 1e3):.4e} "
         "voxels/s")
     return t, err
+
+
+@contextlib.contextmanager
+def bestfirst_inkernel_minima():
+    """Routes ``backend="cuda-bestfirst"`` to the best-first kernel with
+    ``hoist_cmin=False`` (the EDT looks the wrapper up at each call)."""
+    eb, _, _ = kernel_modules()
+    hoisted = eb.parabolic_envelope_last
+    eb.parabolic_envelope_last = functools.partial(hoisted, hoist_cmin=False)
+    try:
+        yield
+    finally:
+        eb.parabolic_envelope_last = hoisted
+
+
+def phase_backend_sweep(mask, sdf, t_plain):
+    """The 512^3 signed EDT through every kernel backend: each must give the
+    main path's bits (held against plain in phase_edt_checks) through its
+    own kernel, two launches each; then each kernel's y- and z-pass times
+    on the main path's stacked field. The plain passes were timed in
+    phase_edt_checks (same function), so they are not run again."""
+    from voxelized_geometry_tools_tpu_torch.ops import edt
+
+    fns = kernel_fns()
+    launches, errs, times = {}, {}, {}
+    for kname, (_, _, backend) in KERNELS.items():
+        route = (bestfirst_inkernel_minima() if kname == "edt_bestfirst_inkernel"
+                 else contextlib.nullcontext())
+        torch.cuda.synchronize()
+        reset_launches()
+        with route:
+            got = edt.signed_distance_from_filled_mask(mask, RESOLUTION,
+                                                       backend=backend)
+        torch.cuda.synchronize()
+        counts = read_launches()
+        launches[kname] = counts[kname]
+        if counts[kname] != 2 or sum(counts.values()) != 2:
+            raise AssertionError(f"backend {backend} ({kname}): launches "
+                                 f"{counts}, expected 2 of {kname}")
+        errs[kname] = max_abs_err(got, sdf.distances)
+        if not torch.equal(got, sdf.distances):
+            raise AssertionError(f"{GRID_N}^3 EDT via {kname} != main path, "
+                                 f"max abs err {errs[kname]}")
+        del got
+        log(f"edt {GRID_N}^3 via {kname} (backend {backend!r}): == main path "
+            "(bitwise), 2 launches")
+
+    d = torch.cat([
+        edt._binary_squared_dist_last(m.movedim(0, -1)).movedim(-1, 0)
+        for m in (mask, ~mask)])
+    fy = d.movedim(1, -1)
+    dz = fns["edt_bestfirst"](fy).movedim(-1, 1)
+    for kname, fn in fns.items():
+        reps = 2 if kname == "edt_envelope" else 5
+        ty = cuda_ms(lambda: fn(fy), reps)
+        tz = cuda_ms(lambda: fn(dz), reps)
+        times[kname] = (ty, tz)
+        log(f"edt time {kname}: y {ty:.3f} ms, z {tz:.3f} ms (plain y "
+            f"{t_plain['plain_y']:.3f} ms, z {t_plain['plain_z']:.3f} ms)")
+    del d, fy, dz
+    return launches, errs, times
+
+
+def phase_sqrt_rounding():
+    """On every integer below 3 * 1024^2 (every squared distance of a 1024^3
+    EDT): the CUDA float64 sqrt, which the EDT's signed combine takes, must
+    equal numpy's correctly rounded one; whether the float32 CUDA sqrt is
+    correctly rounded too is reported, not relied on."""
+    x = torch.arange(3 * LARGE_N ** 2, device="cuda", dtype=torch.float32)
+    s64 = torch.sqrt(x.double())
+    exact = np.sqrt(np.arange(x.numel(), dtype=np.float64))
+    if not np.array_equal(s64.cpu().numpy(), exact):
+        raise AssertionError("the CUDA float64 sqrt is not correctly rounded")
+    differ = int((torch.sqrt(x) != s64.float()).sum())
+    log(f"sqrt on integers < 3*{LARGE_N}^2: cuda float64 == numpy (correctly "
+        f"rounded); cuda float32 differs from it on {differ} of {x.numel()}")
+
+
+def large_sphere_mask(n, device):
+    """benchmarks/large_grid.py's scene: a centered sphere of radius n/4,
+    built on the card."""
+    ax = (torch.arange(n, device=device, dtype=torch.float32)
+          - (n - 1) / 2.0) ** 2
+    return (ax[:, None, None] + ax[None, :, None]
+            + ax[None, None, :]) <= (n / 4.0) ** 2
+
+
+def streamed_launches(shape, slab=128):
+    """Envelope launches of one streamed two-field EDT, from the schedule:
+    one per slab, for each envelope pass, for each field."""
+    from voxelized_geometry_tools_tpu_torch.ops import edt
+
+    per_field = 0
+    for axis in (1, 2):
+        if shape[axis] > 1:
+            n_s = shape[edt._streamed_slab_axis(shape, axis)]
+            size, pad = edt._slab_schedule(n_s, slab)
+            per_field += (n_s + pad) // size
+    return 2 * per_field
+
+
+def phase_large_grid():
+    """1024^3: extract_signed_distance_field picks the streamed pipeline on
+    its own (streaming=None); its SDF must equal the dense best-first EDT
+    bit for bit, with the schedule's launch count and bounded peak memory.
+    Then one 640x480, 64-step fixed-step frame without a corner table (the
+    8-gather sample path)."""
+    from voxelized_geometry_tools_tpu_torch import GridSpec
+    from voxelized_geometry_tools_tpu_torch.ops import edt, render
+
+    n = LARGE_N
+    spec = GridSpec.from_voxel_counts(RESOLUTION, (n,) * 3)
+    mask = large_sphere_mask(n, "cuda")
+    expected = streamed_launches(mask.shape)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    reset_launches()
+    t0 = time.monotonic()
+    with torch.no_grad():
+        sdf = edt.extract_signed_distance_field(mask, spec, None,
+                                                frame="large")
+    torch.cuda.synchronize()
+    t_extract = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = read_launches()
+    launches = counts["edt_bestfirst"]
+    log(f"large {n}^3: extract_signed_distance_field {t_extract * 1e3:.1f} ms"
+        f" (first call, min/max included); launches {counts}, schedule "
+        f"expects {expected} of edt_bestfirst")
+    if launches != expected or sum(counts.values()) != expected:
+        raise AssertionError(f"streamed {n}^3 EDT launched {counts}, the "
+                             f"schedule expects {expected}")
+    log(f"large {n}^3: peak device memory of the streamed call {peak:.3f} "
+        f"GiB ({before / 2 ** 30:.3f} GiB held before it)")
+    if peak > STREAMED_PEAK_GIB:
+        raise AssertionError(f"streamed {n}^3 EDT peaked at {peak:.3f} GiB")
+    values = sdf.distances
+    center = float(values[n // 2, n // 2, n // 2])
+    corner = float(values[0, 0, 0])
+    if not center < 0.0 < corner:
+        raise AssertionError(f"sign: center {center}, corner {corner}")
+    log(f"large {n}^3: center {center:.6f} < 0 < corner {corner:.6f}")
+
+    t_edt = cuda_ms(lambda: edt.signed_distance_from_filled_mask_streamed(
+        mask, RESOLUTION), 2)
+    log(f"large {n}^3 streamed two-field EDT: {t_edt:.3f} ms = "
+        f"{n ** 3 / (t_edt / 1e3):.4e} voxels/s")
+
+    torch.cuda.reset_peak_memory_stats()
+    dense = edt.signed_distance_from_filled_mask(mask, RESOLUTION)
+    torch.cuda.synchronize()
+    dense_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    err = max_abs_err(values, dense)
+    if not torch.equal(values, dense):
+        raise AssertionError(f"streamed {n}^3 SDF != dense, max abs err {err}")
+    del dense
+    log(f"large {n}^3: streamed == dense best-first EDT (bitwise); dense "
+        f"peak device memory {dense_peak:.3f} GiB")
+
+    sizes = np.asarray(spec.grid_sizes)
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, 3] = sizes / 2.0 - np.array([0.0, 0.0, 1.2 * sizes[2]])
+    camera = render.PinholeCamera.create(pose, IMG_W, IMG_H, focal=600.0,
+                                         device="cuda")
+    with torch.no_grad():
+        frame = render.render_depth(sdf, camera, num_steps=NUM_STEPS)
+        t_render = cuda_ms(lambda: render.render_depth(
+            sdf, camera, num_steps=NUM_STEPS), 2)
+    hit_frac = float(frame.hit.float().mean())
+    if not 0.0 < hit_frac < 1.0:
+        raise AssertionError(f"large render: hit fraction {hit_frac}")
+    if not bool(torch.isfinite(frame.depth[frame.hit]).all()):
+        raise AssertionError("large render: non-finite depth on hits")
+    pole = (1.2 - 0.25) * n * RESOLUTION
+    center_depth = float(frame.depth[IMG_H // 2, IMG_W // 2])
+    if abs(center_depth - pole) > 2 * RESOLUTION:
+        raise AssertionError(f"large render: central depth {center_depth} m, "
+                             f"expected ~{pole}")
+    log(f"large {n}^3 render (no table, fixed {NUM_STEPS} steps): hit "
+        f"fraction {hit_frac:.6f}, central depth {center_depth:.6f} m (pole "
+        f"~{pole:.3f} m), {t_render:.3f} ms = "
+        f"{IMG_W * IMG_H / (t_render / 1e3):.4e} rays/s")
+    return err
 
 
 def check_render_contract(ref, got, resolution):
@@ -310,22 +590,34 @@ def main():
     log(f"peak device memory, main path: "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
     t_edt, err_edt = phase_edt_checks(mask, sdf)
+    sweep_launches, sweep_errs, sweep_times = phase_backend_sweep(
+        mask, sdf, t_edt)
     phase_render(sdf, table, camera, fixed, early)
     del table, fixed, early
     phase_gradients()
-    print(json.dumps({"kernels": [{
-        "name": "edt_bestfirst",
-        "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES,
-        "launches": launches,
-        "max_abs_err": max(err_cases, err_edt),
-        # One 512^3 two-field EDT's two envelope passes (y + z), wrapper
-        # included (chunk minima, z-pass transpose), against the plain
-        # version of the same two passes.
-        "ms": t_edt["kernel_y"] + t_edt["kernel_z"],
-        "plain_ms": t_edt["plain_y"] + t_edt["plain_z"],
-    }]}), flush=True)
+    del sdf, mask
+    phase_sqrt_rounding()
+    err_large = phase_large_grid()
+    kernels = []
+    for kname, (source, replaces, _) in KERNELS.items():
+        # Launches: the main path's run for the best-first kernel, the
+        # 512^3 backend sweep's run for the others. Times (backend sweep):
+        # one 512^3 two-field EDT's y + z envelope passes, wrapper included
+        # (chunk minima, z-pass transpose), against the plain version of
+        # the same two passes.
+        first = kname == "edt_bestfirst"
+        errs = [err_cases[kname], sweep_errs[kname]]
+        errs += [err_edt, err_large] if first else []
+        ty, tz = sweep_times[kname]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": launches if first else sweep_launches[kname],
+            "max_abs_err": max(errs),
+            "ms": ty + tz,
+            "plain_ms": t_edt["plain_y"] + t_edt["plain_z"],
+        })
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

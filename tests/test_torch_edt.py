@@ -8,6 +8,7 @@ fields built from them. Inputs come from numpy seeds.
 """
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -230,29 +231,68 @@ def test_float64_combine():
 
 
 def test_backend_errors():
+    """The JAX package's backend names resolve to their counterparts; a
+    kernel backend on a CPU tensor raises ValueError, an unknown name
+    too."""
     mask = torch.from_numpy(_MASKS["random"][0])
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        edt.squared_edt(mask, backend="cuda-bestfirst")
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        edt.signed_distance_from_filled_mask(mask, 0.1,
-                                             backend="cuda-bestfirst")
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        edt.squared_edt(mask, backend="pallas-windowed")
+    for backend in ("cuda-bestfirst", "cuda-envelope", "cuda-windowed",
+                    "pallas", "pallas-windowed", "pallas-bestfirst"):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            edt.squared_edt(mask, backend=backend)
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            edt.signed_distance_from_filled_mask(mask, 0.1, backend=backend)
     with pytest.raises(ValueError, match="Unknown EDT backend"):
         edt.squared_edt(mask, backend="bogus")
-    np.testing.assert_array_equal(
-        edt.squared_edt(mask, backend="plain").numpy(),
-        edt.squared_edt(mask).numpy())
+    for backend in ("plain", "xla"):
+        np.testing.assert_array_equal(
+            edt.squared_edt(mask, backend=backend).numpy(),
+            edt.squared_edt(mask).numpy())
+    assert edt._resolve_edt_backend("pallas-windowed", mask) == "cuda-windowed"
 
 
 def test_streaming_raises():
-    spec = GridSpec.from_voxel_counts(0.1, (4, 5, 6))
-    mask = torch.zeros(spec.counts, dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match="streaming"):
-        edt.extract_signed_distance_field(mask, spec, None, streaming=True)
-    big = GridSpec.from_voxel_counts(0.1, (640, 640, 640))
-    with pytest.raises(NotImplementedError, match="streaming"):
-        edt.extract_signed_distance_field(mask, big, None)
+    """Streaming no longer raises: ``streaming=True`` and a grid at the
+    640^3 switch (lowered here so a small grid reaches it) take the
+    slab-streamed pipeline and give the dense bits."""
+    mask, res = _MASKS["random"]
+    spec = GridSpec.from_voxel_counts(res, mask.shape)
+    dense = edt.extract_signed_distance_field(torch.from_numpy(mask), spec,
+                                              None, streaming=False)
+    streamed = edt.extract_signed_distance_field(torch.from_numpy(mask), spec,
+                                                 None, streaming=True)
+    np.testing.assert_array_equal(streamed.distances.numpy(),
+                                  dense.distances.numpy())
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(edt, "_STREAMING_AUTO_VOXELS", spec.num_total)
+        auto = edt.extract_signed_distance_field(torch.from_numpy(mask), spec,
+                                                 None)
+    np.testing.assert_array_equal(auto.distances.numpy(),
+                                  dense.distances.numpy())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_sqrt_is_correctly_rounded(dtype):
+    """The combine's sqrt against numpy's (correctly rounded) on every
+    squared distance of a 512-voxel axis; PyTorch's own CPU sqrt misses
+    thousands of them in both types."""
+    x = np.arange(3 * 512 * 512, dtype=np.float32)
+    got = edt._sqrt(torch.from_numpy(x), getattr(torch, dtype)).numpy()
+    np.testing.assert_array_equal(
+        got, np.sqrt(x.astype(np.float64)).astype(dtype))
+
+
+@pytest.mark.parametrize("name", ["center", "random", "random_sparse"])
+def test_float64_signed_distance_matches_jax(name):
+    """The float64 combine bit for bit against the JAX package's (with
+    PyTorch's CPU sqrt it differed by one ulp on some voxels)."""
+    mask, res = _MASKS[name]
+    got = edt.signed_distance_from_filled_mask(torch.from_numpy(mask), res,
+                                               dtype=torch.float64).numpy()
+    with jax.enable_x64(True):
+        ref = np.asarray(jedt.signed_distance_from_filled_mask(
+            jnp.asarray(mask), res, dtype=jnp.float64))
+    assert got.dtype == ref.dtype == np.float64
+    np.testing.assert_array_equal(got, ref)
 
 
 def test_non_uniform_spec_rejected():

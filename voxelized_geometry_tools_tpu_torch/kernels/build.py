@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled at first use
 for Hopper (``sm_90a``) into ``kernels/_build/lib<name>-<hash>.so``, keyed by
-a hash of the source and the flags, so an edited source rebuilds and an
-unchanged one loads at once. The compiler's register and shared-memory
+a hash of the source, the shared headers ``csrc/*.cuh`` and the flags, so an
+edited source or header rebuilds and an unchanged one loads at once. The compiler's register and shared-memory
 report (``-Xptxas -v``) is kept beside the library as ``.log``.
 
 A missing ``nvcc`` or a failed compile raises: there is no fallback.
@@ -47,10 +47,12 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = SRC_DIR / f"{name}.cu"
-    key = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{key}.so"
+    """Where ``csrc/<name>.cu`` is built: keyed by its bytes, the bytes of
+    every shared header ``csrc/*.cuh`` it may include, and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in [SRC_DIR / f"{name}.cu", *sorted(SRC_DIR.glob("*.cuh"))]:
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

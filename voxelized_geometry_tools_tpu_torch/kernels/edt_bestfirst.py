@@ -5,7 +5,10 @@ Both compute ``d[..., q] = min_k (q - k)^2 + f[..., k]`` for a float32
 ``f`` of shape ``[..., n]`` (``+inf`` and negative values allowed, NaN not)
 and agree bit for bit. :func:`parabolic_envelope_last` launches the kernel
 for a CUDA tensor and takes the plain version only for a CPU tensor.
-``launches`` counts kernel launches.
+``launches`` counts kernel launches with hoisted chunk minima,
+``launches_inkernel`` those with ``hoist_cmin=False``. The plain version and
+the launch plumbing here are shared with :mod:`.edt_envelope` and
+:mod:`.edt_windowed`.
 """
 
 from __future__ import annotations
@@ -19,15 +22,18 @@ from . import build
 
 Tensor = torch.Tensor
 
-# k rows per chunk and lines per warp; must match csrc/edt_bestfirst.cu.
+# k rows per chunk and lines per warp; must match csrc/edt_common.cuh.
 CHUNK = 16
 WARP_LINES = 32
-# Per-warp bound table in shared memory: 4 warps x ceil(n / 16) floats.
+# Axis length limit of every envelope kernel; it bounds the best-first
+# kernel's shared-memory bound table (4 warps x ceil(n / 16) floats).
 MAX_N = 16384
 # Cap on the plain version's [lines, n, block] candidate tensor (1 GiB f32).
 PLAIN_CANDIDATES = 1 << 28
 
+# Kernel launches with hoisted chunk minima, and with in-kernel minima.
 launches = 0
+launches_inkernel = 0
 
 
 def parabolic_envelope_last_plain(f: Tensor, block: int = 512) -> Tensor:
@@ -76,6 +82,11 @@ def _chunk_minima(ft: Tensor) -> Tensor:
     return cm.transpose(1, 2).contiguous()
 
 
+# ctypes types of the arguments every envelope kernel's C entry point takes
+# after its pointers: B, n, L, the three strides of f, device, stream.
+LINES_ARGTYPES = [ctypes.c_longlong] * 6 + [ctypes.c_int, ctypes.c_void_p]
+
+
 @functools.cache
 def _launcher():
     lib = build.load_library("edt_bestfirst")
@@ -85,22 +96,21 @@ def _launcher():
         raise RuntimeError("edt_bestfirst.cu and edt_bestfirst.py disagree "
                            "on the chunk size")
     fn = lib.edt_bestfirst_launch
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 6
-                   + [ctypes.c_int, ctypes.c_void_p])
+    fn.argtypes = [ctypes.c_void_p] * 3 + LINES_ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
 
-def parabolic_envelope_last(f: Tensor) -> Tensor:
-    """Exact squared-distance transform along the last axis of ``f``.
-
-    On a CUDA tensor this launches the kernel (building it at first use) on
-    the current stream, without synchronizing, or raises; it never falls
-    back. On a CPU tensor it runs :func:`parabolic_envelope_last_plain`.
-    The result has ``f``'s shape; its strides follow the kernel's layout."""
-    global launches
-    if f.device.type == "cpu":
-        return parabolic_envelope_last_plain(f)
+def launch_on_lines(f: Tensor, name: str, launch) -> Tensor:
+    """The wrapper plumbing the envelope kernels share. Checks that ``f`` is
+    a float32 CUDA tensor whose last axis is in ``[1, MAX_N]``, views it as
+    ``[B, n, L]`` with the lines on the contiguous axis (a transposed copy
+    only where they are not), allocates the contiguous output and calls
+    ``launch(ft, out, args)`` once, where ``args`` are the trailing
+    arguments of ``LINES_ARGTYPES``. ``launch`` starts the kernel on the
+    current stream and returns its ``cudaError_t``; a non-zero one raises.
+    Returns the result in ``f``'s shape; its strides follow the kernel's
+    layout. An empty ``f`` launches nothing."""
     if f.device.type != "cuda":
         raise ValueError(f"unsupported device {f.device}")
     if f.dtype != torch.float32:
@@ -118,14 +128,37 @@ def parabolic_envelope_last(f: Tensor) -> Tensor:
     if ft.stride(2) != 1 and ft.shape[2] > 1:
         ft = ft.contiguous()
     b, _, lines = ft.shape
-    cmin = _chunk_minima(ft)
     out = torch.empty((b, n, lines), dtype=torch.float32, device=f.device)
-    err = _launcher()(
-        ft.data_ptr(), cmin.data_ptr(), out.data_ptr(), b, n, lines,
-        ft.stride(0), ft.stride(1), ft.stride(2), f.device.index or 0,
-        torch.cuda.current_stream(f.device).cuda_stream)
+    err = launch(ft, out, (b, n, lines, *ft.stride(), f.device.index or 0,
+                           torch.cuda.current_stream(f.device).cuda_stream))
     if err != 0:
-        raise RuntimeError(f"edt_bestfirst kernel launch failed "
-                           f"(cudaError_t {err})")
-    launches += 1
+        raise RuntimeError(f"{name} kernel launch failed (cudaError_t {err})")
     return out.transpose(1, 2).reshape(f.shape)
+
+
+def parabolic_envelope_last(f: Tensor, hoist_cmin: bool = True) -> Tensor:
+    """Exact squared-distance transform along the last axis of ``f``.
+
+    On a CUDA tensor this launches the kernel (building it at first use) on
+    the current stream, without synchronizing, or raises; it never falls
+    back. ``hoist_cmin`` (as in the JAX package's
+    ``parabolic_envelope_last_pallas_bestfirst``) takes the chunk minima
+    from :func:`_chunk_minima`, computed once per call; without it the
+    kernel reduces them itself. Both give the same bits. On a CPU tensor it
+    runs :func:`parabolic_envelope_last_plain`."""
+    if f.device.type == "cpu":
+        return parabolic_envelope_last_plain(f)
+
+    def launch(ft, out, args):
+        global launches, launches_inkernel
+        cmin = _chunk_minima(ft) if hoist_cmin else None
+        err = _launcher()(ft.data_ptr(),
+                          None if cmin is None else cmin.data_ptr(),
+                          out.data_ptr(), *args)
+        if err == 0 and hoist_cmin:
+            launches += 1
+        elif err == 0:
+            launches_inkernel += 1
+        return err
+
+    return launch_on_lines(f, "edt_bestfirst", launch)

@@ -1,39 +1,64 @@
 """Exact 3-D Euclidean distance transform + signed-distance-field generation.
 
-Port of ``voxelized_geometry_tools_tpu/ops/edt.py`` (the dense path). The
-math is the JAX package's:
+Port of ``voxelized_geometry_tools_tpu/ops/edt.py``. The math is the JAX
+package's:
 
 * **Pass 1** (axis 0, binary seed field): squared distance to the nearest
   seed from two ``cummax`` prefix scans, O(n).
 * **Passes 2 and 3** (axes 1 and 2, general ``f``): the exact min-plus
-  ``d[q] = min_k (q-k)^2 + f[k]``. On a CUDA tensor ``backend="auto"``
-  launches the best-first CUDA kernel
-  (:mod:`..kernels.edt_bestfirst`); on a CPU tensor it runs the plain
-  chunked min-plus beside it.
+  ``d[q] = min_k (q-k)^2 + f[k]``, by one of four interchangeable
+  backends: the plain chunked min-plus, or one of three CUDA kernels
+  (best-first, full sweep, windowed; :mod:`..kernels`). On a CUDA tensor
+  ``backend="auto"`` launches the best-first kernel; on a CPU tensor it
+  runs the plain version.
+
+The slab-streamed pipeline (:func:`squared_edt_streamed`,
+:func:`signed_distance_from_filled_mask_streamed`) runs the same passes
+slab by slab, so a 1024^3 grid fits with slab-sized transients; grids of
+640^3 voxels and more take it by default, as in the JAX package.
 
 All intermediate values are squared integer distances, exact in float32,
-so every backend gives the same bits as the JAX package.
+so every backend and both pipelines give the same bits as the JAX package.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..core.grid import GridSpec
 from ..core.maps import SignedDistanceField
-from ..kernels import edt_bestfirst
+from ..kernels import edt_bestfirst, edt_envelope, edt_windowed
 
 Tensor = torch.Tensor
 
 _INF = float("inf")
 
-# Grids at or above this size take the JAX package's slab-streamed
-# pipeline by default; that pipeline is not ported yet.
+# Grids at or above this size take the slab-streamed pipeline by default,
+# as in the JAX package.
 _STREAMING_AUTO_VOXELS = 640 ** 3
-_STREAMING_TODO = ("the slab-streamed EDT is not ported yet "
-                   "(ROADMAP.md queue 1 item 5e, streaming EDT)")
+
+# The envelope backends that launch a CUDA kernel, by module (the module's
+# ``parabolic_envelope_last`` is looked up at each call).
+_KERNEL_BACKENDS = {
+    "cuda-bestfirst": edt_bestfirst,
+    "cuda-envelope": edt_envelope,
+    "cuda-windowed": edt_windowed,
+}
+# The JAX package's backend names, accepted for their counterparts so that
+# code written for it runs unchanged.
+BACKEND_ALIASES = {
+    "xla": "plain",
+    "pallas": "cuda-envelope",
+    "pallas-windowed": "cuda-windowed",
+    "pallas-bestfirst": "cuda-bestfirst",
+}
+
+# Elements per step of the streamed signed combine: its float64 sqrt
+# temporaries stay at 1 GiB whatever the grid.
+_COMBINE_CHUNK = 1 << 27
 
 
 def _binary_squared_dist_last(seed: Tensor) -> Tensor:
@@ -63,8 +88,10 @@ def _parabolic_envelope_last(f: Tensor, block: int = 512) -> Tensor:
 
 
 def _resolve_edt_backend(backend: str, f: Tensor) -> str:
-    """``auto`` keys on the tensor's device: the CUDA kernel for a CUDA
-    tensor at every size, the plain min-plus for a CPU tensor."""
+    """Maps the JAX package's names to their counterparts; ``auto`` keys on
+    the tensor's device: the best-first kernel for a CUDA tensor at every
+    size, the plain min-plus for a CPU tensor."""
+    backend = BACKEND_ALIASES.get(backend, backend)
     if backend != "auto":
         return backend
     return "cuda-bestfirst" if f.is_cuda else "plain"
@@ -72,26 +99,29 @@ def _resolve_edt_backend(backend: str, f: Tensor) -> str:
 
 def _envelope_last(f: Tensor, block: int, backend: str) -> Tensor:
     backend = _resolve_edt_backend(backend, f)
-    if backend == "cuda-bestfirst":
-        if not f.is_cuda:
-            raise ValueError(
-                "backend='cuda-bestfirst' needs a CUDA tensor, got one on "
-                f"{f.device}")
-        return edt_bestfirst.parabolic_envelope_last(f)
     if backend == "plain":
         return _parabolic_envelope_last(f, block)
-    if backend in ("pallas", "pallas-windowed"):
-        raise NotImplementedError(
-            f"EDT backend {backend!r} is a TPU kernel not ported yet "
-            "(ROADMAP.md queue 2)")
-    raise ValueError(f"Unknown EDT backend {backend!r}")
+    kernel = _KERNEL_BACKENDS.get(backend)
+    if kernel is None:
+        raise ValueError(f"Unknown EDT backend {backend!r}")
+    if not f.is_cuda:
+        raise ValueError(f"backend={backend!r} needs a CUDA tensor, got one "
+                         f"on {f.device}")
+    return kernel.parabolic_envelope_last(f)
 
 
 def squared_edt(seed: Tensor, block: int = 512,
                 backend: str = "auto") -> Tensor:
     """Exact squared Euclidean distance (voxel units) to the nearest True
-    voxel; ``+inf`` everywhere if no seed is set. ``backend``: ``"auto"``,
-    ``"plain"`` or ``"cuda-bestfirst"``."""
+    voxel; ``+inf`` everywhere if no seed is set.
+
+    ``backend`` selects the envelope pass of axes 1 and 2: ``"plain"`` (the
+    chunked min-plus), ``"cuda-bestfirst"``, ``"cuda-envelope"`` (full
+    sweep) or ``"cuda-windowed"`` (the CUDA kernels; a CPU tensor raises),
+    or ``"auto"`` (best-first on a CUDA tensor, plain on a CPU tensor). The
+    JAX package's names ``"xla"``, ``"pallas"``, ``"pallas-windowed"`` and
+    ``"pallas-bestfirst"`` are aliases of the four. All give the same
+    bits."""
     seed = seed.bool()
     d = _binary_squared_dist_last(seed.movedim(0, -1)).movedim(-1, 0)
     if seed.shape[1] > 1:
@@ -129,11 +159,128 @@ def signed_distance_from_filled_mask(is_filled: Tensor, resolution: float,
 
 
 def _sqrt(x: Tensor, dtype) -> Tensor:
-    """Correctly rounded ``sqrt`` in ``dtype``. PyTorch's float32 CPU sqrt
-    is not always correctly rounded (measured: 5456 of the integers below
-    3 * 512^2 differ by one ulp); a float64 sqrt rounded to float32 is, so
-    the result matches the JAX package bit for bit on every device."""
-    return torch.sqrt(x.to(torch.float64)).to(dtype)
+    """Correctly rounded ``sqrt`` in ``dtype`` (float32 or float64), so the
+    result matches the JAX package bit for bit on every device. It is taken
+    in float64 and rounded: a correctly rounded float64 sqrt rounded to
+    float32 is the correctly rounded float32 sqrt (53 >= 2 * 24 + 2).
+    PyTorch's CPU sqrt is not correctly rounded in either type (measured
+    on the integers below 3 * 512^2: 5456 differ by one ulp in float32,
+    6070 in float64), so a CPU tensor takes numpy's, which is; on CUDA the
+    float64 sqrt is IEEE."""
+    x64 = x.to(torch.float64)
+    if x64.device.type == "cpu":
+        return torch.from_numpy(np.sqrt(x64.numpy())).to(dtype)
+    return torch.sqrt(x64).to(dtype)
+
+
+def _largest_divisor_at_most(n: int, target: int) -> int:
+    for s in range(min(int(target), int(n)), 0, -1):
+        if n % s == 0:
+            return s
+    return 1
+
+
+def _slab_schedule(n: int, target: int):
+    """``(slab, pad)`` with ``slab <= target`` and ``(n + pad) % slab == 0``,
+    as in the JAX package: an exact divisor near the target, or for
+    divisor-poor axes (primes) the target itself with the last slab
+    ``pad`` short, instead of degrading to slab=1. Slabs never overlap: the
+    envelope is not idempotent."""
+    n, target = int(n), max(1, min(int(target), int(n)))
+    s = _largest_divisor_at_most(n, target)
+    if s >= max(1, target // 2):
+        return s, 0
+    return target, (-n) % target
+
+
+def _slabs(n: int, target: int):
+    """``(start, width)`` of each slab of ``_slab_schedule(n, target)``. The
+    JAX package pads the axis by ``pad`` and slices it off afterwards; here
+    the last slab is narrower instead. The padded lines are independent of
+    the real ones, so the results and the slab count are the same and no
+    padded copy of the grid is made."""
+    slab, pad = _slab_schedule(n, target)
+    return [(s, min(slab, n - s)) for s in range(0, n + pad, slab)]
+
+
+def _streamed_slab_axis(shape, pass_axis: int) -> int:
+    """Largest axis perpendicular to the pass axis (the first on a tie), so
+    that anisotropic grids keep slab-sized transients."""
+    return max((a for a in range(3) if a != pass_axis),
+               key=lambda a: shape[a])
+
+
+def _streamed_binary_axis0(seed: Tensor, slab_target: int) -> Tensor:
+    """Axis-0 binary pass, slab by slab (transients slab-sized)."""
+    s_ax = _streamed_slab_axis(seed.shape, 0)
+    out = torch.empty(seed.shape, dtype=torch.float32, device=seed.device)
+    for start, width in _slabs(seed.shape[s_ax], slab_target):
+        sl = seed.narrow(s_ax, start, width)
+        d = _binary_squared_dist_last(sl.movedim(0, -1)).movedim(-1, 0)
+        out.narrow(s_ax, start, width).copy_(d)
+    return out
+
+
+def _streamed_envelope_axis(d: Tensor, axis: int, slab_target: int,
+                            block: int, backend: str) -> Tensor:
+    """Envelope along ``axis``, slab by slab over a perpendicular axis, each
+    slab written back into ``d`` in place: peak memory is one grid plus a
+    slab's transients. Identical per-line math, identical bits."""
+    s_ax = _streamed_slab_axis(d.shape, axis)
+    for start, width in _slabs(d.shape[s_ax], slab_target):
+        sl = d.narrow(s_ax, start, width)
+        sl.copy_(_envelope_last(sl.movedim(axis, -1), block,
+                                backend).movedim(-1, axis))
+    return d
+
+
+def squared_edt_streamed(seed: Tensor, slab: int = 128, block: int = 512,
+                         backend: str = "auto") -> Tensor:
+    """Exact squared EDT with slab-bounded transients, for grids whose dense
+    pipeline would not fit (1024^3). Bit-identical to :func:`squared_edt`;
+    ``backend`` as there."""
+    seed = seed.bool()
+    d = _streamed_binary_axis0(seed, slab)
+    if seed.shape[1] > 1:
+        d = _streamed_envelope_axis(d, 1, slab, block, backend)
+    if seed.shape[2] > 1:
+        d = _streamed_envelope_axis(d, 2, slab, block, backend)
+    return d
+
+
+def _scaled_sqrt_into(out: Tensor, d2: Tensor, res: Tensor,
+                      subtract: bool) -> None:
+    """``out = sqrt(d2) * res``, or ``out -= sqrt(d2) * res``, in steps of ``_COMBINE_CHUNK`` elements, so that the
+    float64 temporaries of :func:`_sqrt` stay small. ``out`` may be ``d2``
+    itself. Each element is rounded as in the dense combine."""
+    flat_out, flat_d2 = out.view(-1), d2.view(-1)
+    for s in range(0, flat_d2.numel(), _COMBINE_CHUNK):
+        v = _sqrt(flat_d2[s:s + _COMBINE_CHUNK], out.dtype) * res
+        if subtract:
+            flat_out[s:s + _COMBINE_CHUNK] -= v
+        else:
+            flat_out[s:s + _COMBINE_CHUNK] = v
+
+
+def signed_distance_from_filled_mask_streamed(
+        is_filled: Tensor, resolution: float, slab: int = 128,
+        block: int = 512, dtype=torch.float32,
+        backend: str = "auto") -> Tensor:
+    """Two-field signed combine with slab-bounded memory: the fields run one
+    after the other (not stacked), each pass streams slabs, and the combine
+    is taken in place chunk by chunk, so about 2 float32 grids stay
+    resident instead of the dense path's 4 or more. Bit-identical to
+    :func:`signed_distance_from_filled_mask`."""
+    is_filled = is_filled.bool()
+    res = torch.tensor(resolution, dtype=dtype, device=is_filled.device)
+    d2 = squared_edt_streamed(is_filled, slab, block, backend)
+    out = d2 if dtype == torch.float32 else torch.empty(
+        d2.shape, dtype=dtype, device=d2.device)
+    _scaled_sqrt_into(out, d2, res, subtract=False)
+    del d2
+    _scaled_sqrt_into(out, squared_edt_streamed(~is_filled, slab, block,
+                                                backend), res, subtract=True)
+    return out
 
 
 def _pad_axis_flags(counts: Tuple[int, int, int]):
@@ -147,9 +294,8 @@ def signed_distance_with_virtual_border(is_filled: Tensor, resolution: float,
                                         dtype=torch.float32,
                                         streaming: bool = False) -> Tensor:
     """Synthesize a 1-voxel border, compute a "free" SDF (border filled) and
-    a "filled" SDF (border free) on the enlarged grid, crop, and merge."""
-    if streaming:
-        raise NotImplementedError(_STREAMING_TODO)
+    a "filled" SDF (border free) on the enlarged grid, crop, and merge.
+    ``streaming`` takes the slab-streamed pipeline for both."""
     is_filled = is_filled.bool()
     pads = _pad_axis_flags(tuple(is_filled.shape))
     big = tuple(s + 2 * p for s, p in zip(is_filled.shape, pads))
@@ -160,11 +306,18 @@ def signed_distance_with_virtual_border(is_filled: Tensor, resolution: float,
                                device=is_filled.device)
     filled_seeds[inner] = is_filled
 
-    free_sdf = signed_distance_from_filled_mask(
-        free_seeds, resolution, block, dtype)[inner]
-    filled_sdf = signed_distance_from_filled_mask(
-        filled_seeds, resolution, block, dtype)[inner]
-    return merge_free_and_named_object_sdfs(free_sdf, filled_sdf)
+    if streaming:
+        free_sdf = signed_distance_from_filled_mask_streamed(
+            free_seeds, resolution, block=block, dtype=dtype)
+        filled_sdf = signed_distance_from_filled_mask_streamed(
+            filled_seeds, resolution, block=block, dtype=dtype)
+    else:
+        free_sdf = signed_distance_from_filled_mask(
+            free_seeds, resolution, block, dtype)
+        filled_sdf = signed_distance_from_filled_mask(
+            filled_seeds, resolution, block, dtype)
+    return merge_free_and_named_object_sdfs(free_sdf[inner],
+                                            filled_sdf[inner])
 
 
 def filled_mask_from_occupancy(occupancy: Tensor,
@@ -190,18 +343,19 @@ def extract_signed_distance_field(
     """Full SDF-generation entry point over a filled-voxel mask; returns the
     field *locked* with cached min/max, on the mask's device.
 
-    ``streaming=None`` would pick the slab-streamed pipeline for grids of
-    640^3 voxels and more, as in the JAX package; that pipeline is not
-    ported, so such grids (and ``streaming=True``) raise."""
+    ``streaming`` selects the slab-streamed pipeline (bit-identical, with
+    slab-bounded transients: how 1024^3 fits one card); ``None`` takes it
+    for grids of 640^3 voxels and more, as in the JAX package."""
     spec.enforce_uniform_voxel_size()
     mask = torch.as_tensor(is_filled).bool()
     if streaming is None:
         streaming = spec.num_total >= _STREAMING_AUTO_VOXELS
-    if streaming:
-        raise NotImplementedError(_STREAMING_TODO)
     if add_virtual_border:
         values = signed_distance_with_virtual_border(
-            mask, spec.resolution, block, dtype)
+            mask, spec.resolution, block, dtype, streaming=streaming)
+    elif streaming:
+        values = signed_distance_from_filled_mask_streamed(
+            mask, spec.resolution, block=block, dtype=dtype)
     else:
         values = signed_distance_from_filled_mask(
             mask, spec.resolution, block, dtype)
