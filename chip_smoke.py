@@ -7,12 +7,17 @@ parallel), checks each bit for bit against its plain PyTorch version, then
 drives the main path at full size (512^3 two-field EDT -> corner table ->
 640x480 sphere-traced renders, the scene and camera of bench.py) and the
 differentiable ``entry()``, checking every result. Then it drives every
-other EDT backend through the same 512^3 EDT, and the large-grid path: a
+other EDT backend through the same 512^3 EDT, the large-grid path (a
 1024^3 signed EDT that takes the slab-streamed pipeline on its own, and a
-render from it without a corner table. Prints human-readable lines, then a
-JSON line describing each kernel, then ``{"ok": true, "device": ...}`` as
-the last line. Any failure raises, and the script exits non-zero; without
-a CUDA card it exits non-zero before doing anything.
+render from it without a corner table), the primitive-rate probes' entry
+point (``kernels.probes.main``, the counterpart of
+benchmarks/inkernel_microbench.py) with each probe held against its plain
+version, and bench.py's shipped early-exit schedule (cone prepass, block-
+sorted tail, sparse final sample) on the sphere and clutter scenes. Prints
+human-readable lines, then a JSON line describing each kernel, then
+``{"ok": true, "device": ...}`` as the last line. Any failure raises, and
+the script exits non-zero; without a CUDA card it exits non-zero before
+doing anything.
 """
 
 import contextlib
@@ -25,6 +30,9 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+
+from voxelized_geometry_tools_tpu_torch.kernels import probes
+from voxelized_geometry_tools_tpu_torch.kernels.probes import cuda_ms
 
 GRID_N = 512
 RESOLUTION = 0.01
@@ -45,7 +53,25 @@ KERNELS = {
     "edt_windowed": (CSRC + "edt_windowed.cu", PALLAS + "161",
                      "cuda-windowed"),
 }
-LIBRARIES = ("edt_bestfirst", "edt_envelope", "edt_windowed")
+MICROBENCH = "benchmarks/inkernel_microbench.py:"
+# The probe kernels: (the TPU kernel each replaces, the key of its time in
+# the JSON of kernels.probes.main, and the rows that time is per).
+PROBES = {
+    "vmem_gather": (MICROBENCH + "68", "vmem_gather_ns_per_row",
+                    probes.GATHER_ITERS),
+    "vmem_scatter": (MICROBENCH + "95", "vmem_scatter_ns_per_row_4096",
+                     probes.SCATTER_ITERS),
+    "hbm_dma": (MICROBENCH + "121", "hbm_dma_ns_per_row_depth8",
+                probes.DMA_ITERS),
+    "vmem_batch_march": (MICROBENCH + "170",
+                         "march_step_ns_per_ray_batch256",
+                         probes.MARCH_STEPS * 256),
+}
+LIBRARIES = ("edt_bestfirst", "edt_envelope", "edt_windowed", "probes")
+# bench.py's shipped render schedule (bench.py:124-128).
+SCHEDULE = dict(early_exit=True, coarse_factor=8, head_steps=0,
+                tail_chunks=32, cone_steps=32, cone_tail_chunks=8)
+SCHEDULE_FRAMES = 3
 # Peak device memory allowed for the streamed 1024^3 signed EDT.
 STREAMED_PEAK_GIB = 20.0
 # Render contract (as tests/test_torch_render.py): depth within 1e-4 m on
@@ -58,21 +84,6 @@ GRAD_RTOL, GRAD_ATOL = 1e-3, 1e-4
 
 def log(*args):
     print(*args, flush=True)
-
-
-def cuda_ms(fn, reps):
-    """Mean milliseconds per call of ``fn`` on the current stream (CUDA
-    events around ``reps`` calls, after one warm-up call)."""
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        out = fn()
-    stop.record()
-    torch.cuda.synchronize()
-    del out
-    return start.elapsed_time(stop) / reps
 
 
 def max_abs_err(got, ref):
@@ -133,6 +144,7 @@ def phase_build():
         paths = list(pool.map(build.build, LIBRARIES))
     for mod in (eb, ee, ew):
         mod._launcher()
+    probes._library()
     log(f"build: {', '.join(LIBRARIES)} in {time.monotonic() - t0:.2f} s "
         "(in parallel)")
     for name, path in zip(LIBRARIES, paths):
@@ -580,6 +592,268 @@ def phase_gradients():
         "contract")
 
 
+def probe_cases(full):
+    """(name, kernel call, plain call) for each probe: the TPU seeds and
+    others, a row count that is not a power of two, dma depths 2/8/16,
+    march batches 64/256, one replica and ``full``; integer tables, so
+    every sum is exact and kernel and plain must agree bit for bit."""
+    pr = probes
+    dev = torch.device("cuda")
+    cases = []
+    for n_rows, width, seed in ((pr.TABLE_ROWS, pr.WIDTH, pr.GATHER_SEED),
+                                (3001, pr.WIDTH, 7), (1000, 37, 424242)):
+        table = pr.integer_table(n_rows, width, dev, seed=n_rows)
+        for reps, iters in ((1, pr.GATHER_ITERS), (full, 20_000)):
+            args = (iters, reps, seed)
+            cases.append((f"vmem_gather({n_rows}x{width}, seed {seed}, "
+                          f"{reps} replicas)",
+                          functools.partial(pr.vmem_gather, table, *args),
+                          functools.partial(pr.vmem_gather_plain, table,
+                                            *args)))
+    for n_rows, width, seed in ((2048, pr.WIDTH, pr.SCATTER_SEED),
+                                (4096, pr.WIDTH, 99), (1000, 37, 5)):
+        mask = pr.integer_table(1, width, dev, seed=width)
+        for reps, iters in ((1, pr.SCATTER_ITERS), (full, 20_000)):
+            args = (iters, n_rows, reps, seed)
+            cases.append((f"vmem_scatter({n_rows}x{width}, seed {seed}, "
+                          f"{reps} replicas)",
+                          functools.partial(pr.vmem_scatter, mask, *args),
+                          functools.partial(pr.vmem_scatter_plain, mask,
+                                            *args)))
+    big = pr.integer_table(pr.DMA_ROWS, pr.DMA_WIDTH, dev, seed=2)
+    for rows in (pr.DMA_ROWS, 1_000_003):
+        table = big[:rows]
+        for depth in pr.DMA_DEPTHS:
+            for reps in (1, full):
+                args = (pr.DMA_ITERS, depth, reps, pr.DMA_SEED + depth)
+                cases.append((f"hbm_dma({rows}x{pr.DMA_WIDTH}, depth "
+                              f"{depth}, {reps} replicas)",
+                              functools.partial(pr.hbm_dma, table, *args),
+                              functools.partial(pr.hbm_dma_plain, table,
+                                                *args)))
+    for n_rows in (pr.TABLE_ROWS, 3001):
+        table = pr.integer_table(n_rows, pr.WIDTH, dev, seed=n_rows + 1)
+        for batch in pr.MARCH_BATCHES:
+            t0 = pr.integer_table(1, batch, dev, seed=batch) * 0.25
+            for reps in (1, full):
+                args = (table, t0, pr.MARCH_STEPS, reps)
+                cases.append((f"vmem_batch_march({n_rows}x{pr.WIDTH}, "
+                              f"batch {batch}, {reps} replicas)",
+                              functools.partial(pr.vmem_batch_march, *args),
+                              functools.partial(pr.vmem_batch_march_plain,
+                                                *args)))
+    return cases
+
+
+def phase_probes():
+    """The probes' entry point (kernels.probes.main: every probe at the
+    card's shapes, one replica and one per SM) with the launch counts set
+    to 0 before it and read after; then each probe bitwise against its
+    plain version, and the plain versions' times at the card's shapes."""
+    torch.cuda.synchronize()
+    for name in probes.launches:
+        probes.launches[name] = 0
+    rates = probes.main()
+    torch.cuda.synchronize()
+    full = rates["replicas_full"]
+    launches = dict(probes.launches)
+    log(f"probes main(): launches {launches}")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a probe kernel was not launched: {launches}")
+
+    worst = {name: 0.0 for name in PROBES}
+    counted = 0
+    for name, kernel, plain in probe_cases(full):
+        got, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        err = max_abs_err(got, ref)
+        key = name.split("(")[0]
+        worst[key] = max(worst[key], err)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"{name}: kernel != plain, max abs err "
+                                 f"{err}")
+        counted += 1
+    log(f"probes kernel vs plain: {counted} cases bitwise equal "
+        f"(replicas 1 and {full})")
+
+    dev = torch.device("cuda")
+    table = probes.integer_table(probes.TABLE_ROWS, probes.WIDTH, dev)
+    mask = probes.integer_table(1, probes.WIDTH, dev, seed=1)
+    big = probes.integer_table(probes.DMA_ROWS, probes.DMA_WIDTH, dev, seed=2)
+    t0 = torch.zeros(1, 256, device=dev)
+    dma_seeds = probes.fresh_seeds(probes.DMA_SEED, 4, 1, probes.DMA_ITERS)
+    plain_ms = {
+        "vmem_gather": cuda_ms(lambda: probes.vmem_gather_plain(
+            table, probes.GATHER_ITERS), 3),
+        "vmem_scatter": cuda_ms(lambda: probes.vmem_scatter_plain(
+            mask, probes.SCATTER_ITERS, 4096), 3),
+        "hbm_dma": cuda_ms(lambda: probes.hbm_dma_plain(
+            big, probes.DMA_ITERS, 8, 1, next(dma_seeds)), 3),
+        "vmem_batch_march": cuda_ms(lambda: probes.vmem_batch_march_plain(
+            table, t0, probes.MARCH_STEPS), 3),
+    }
+    kernel_ms = {}
+    for name, (_, key, rows) in PROBES.items():
+        kernel_ms[name] = rates[key] * rows / 1e6
+        log(f"probe {name}: {rates[key]:.4f} ns/row with 1 replica "
+            f"({kernel_ms[name]:.4f} ms), {rates['full_card'][key]:.4f} "
+            f"ns/row over {full} replicas; plain version "
+            f"{plain_ms[name]:.4f} ms (index generation included)")
+    return launches, worst, kernel_ms, plain_ms
+
+
+def check_cone_equiv(base, cone, resolution):
+    """tests/test_fast_render.py's contract for a cone-started render against
+    the plain march of the same budget: every hit of the plain march is a
+    hit here, and common depths agree within twice the threshold. Excepted
+    are tangent grazers, whose sub-threshold sliver two sample sequences may
+    enter at different points or not at all: for a lost hit, the plain
+    march's final query within the grazer band of the threshold (as in the
+    test); for the depth, either render's, since a shallow approach may stop
+    either sequence just under the threshold. The depth test also skips
+    the plain march's budget-capped hits (final query above the threshold:
+    within the hit test's twice the threshold, but converged nowhere).
+    Returns the grazer hits lost, the largest depth difference held to the
+    contract, and the count of common hits past it (grazers or budget-
+    capped) with their largest depth difference."""
+    thresh = 0.25 * resolution
+    band = GRAZER_BAND * resolution
+    graze = (base.distance - thresh).abs() <= band
+    divergent = base.hit & ~cone.hit
+    if bool((divergent & ~graze).any()):
+        lost = int((divergent & ~graze).sum())
+        raise AssertionError(f"the schedule lost {lost} non-grazer hits of "
+                             "the plain march")
+    graze = graze | ((cone.distance - thresh).abs() <= band)
+    both = base.hit & cone.hit
+    diff = (cone.depth - base.depth).abs()
+    past = both & (diff > 2.0 * thresh + 1e-6)
+    held = both & ~graze & (base.distance <= thresh)
+    if bool((past & held).any()):
+        bad = past & held
+        raise AssertionError(f"depth differs by {float(diff[bad].max())} m "
+                             f"on {int(bad.sum())} common hits")
+    err = float(diff[held].max())
+    past_err = float(diff[past].max()) if bool(past.any()) else 0.0
+    return int(divergent.sum()), err, int(past.sum()), past_err
+
+
+def clutter_mask(n, device):
+    """bench.py's clutter scene (rng 42: a floor slab and 14 spheres), built
+    on the card in float64 as bench.py builds it in numpy."""
+    rng = np.random.default_rng(42)
+    ax = torch.arange(n, device=device, dtype=torch.float64)
+    mask = torch.zeros((n, n, n), dtype=torch.bool, device=device)
+    mask[:, :, :24] = True
+    for _ in range(14):
+        cc = rng.uniform(0.15, 0.85, 3) * n
+        cr = rng.uniform(20.0, 60.0)
+        mask |= (((ax[:, None, None] - cc[0]) ** 2
+                  + (ax[None, :, None] - cc[1]) ** 2)
+                 + (ax[None, None, :] - cc[2]) ** 2) <= cr * cr
+    return mask
+
+
+def certified_share(sdf, table, camera):
+    """Share of the frame's rays that the escape certificates retire
+    unmarched (sphere_trace's ``killed`` mask under the schedule)."""
+    from voxelized_geometry_tools_tpu_torch.ops import render
+
+    thresh = 0.25 * sdf.resolution
+    t_init, valid_from, _, escaped = render._cone_prepass(
+        sdf, camera, SCHEDULE["coarse_factor"], NUM_STEPS, thresh, 100.0,
+        table, max_cone_steps=SCHEDULE["cone_steps"],
+        cone_tail_chunks=SCHEDULE["cone_tail_chunks"])
+    t_enter, t_exit, _ = render._clip_to_grid(sdf, *render.camera_rays(camera))
+    killed = (escaped & (torch.clamp(t_exit, max=100.0) <= t_init)
+              & (t_enter >= valid_from))
+    return float(killed.float().mean())
+
+
+def profile_frame(fn):
+    """Device operations (kernels and copies) one call of ``fn`` runs, and
+    their summed device time in ms, from the profiler's trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    if n == 0:
+        raise AssertionError("the profiler saw no CUDA kernel")
+    busy = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+    return n, busy
+
+
+def phase_render_schedule(spec, sdf, table, camera, fixed):
+    """bench.py's shipped schedule on the 512^3 sphere and clutter scenes:
+    held against the fixed 64-step march of the same frame under the cone
+    contract, with its counters, certificate share, time and launches."""
+    from voxelized_geometry_tools_tpu_torch.ops import edt, render, sdf_query
+
+    cmask = clutter_mask(GRID_N, "cuda")
+    with torch.no_grad():
+        csdf = edt.extract_signed_distance_field(cmask, spec, None,
+                                                 frame="clutter")
+        ctable = sdf_query.build_corner_table(csdf)
+        cfixed = render.render_depth(csdf, camera, num_steps=NUM_STEPS,
+                                     corner_table=ctable)
+    del cmask
+    for scene, s, t, base in (("sphere", sdf, table, fixed),
+                              ("clutter", csdf, ctable, cfixed)):
+        def frame(s=s, t=t):
+            return render.render_depth(s, camera, num_steps=NUM_STEPS,
+                                       corner_table=t, **SCHEDULE)
+
+        with torch.no_grad():
+            res, stats = render.render_depth(
+                s, camera, num_steps=NUM_STEPS, corner_table=t,
+                with_stats=True, **SCHEDULE)
+            plain = frame()
+            if not (torch.equal(plain.depth, res.depth)
+                    and torch.equal(plain.hit, res.hit)):
+                raise AssertionError(f"{scene}: with_stats changed the frame")
+            hit_frac = float(res.hit.float().mean())
+            # bench.py's camera sees the clutter scene's floor slab face-on
+            # across the whole frame: every ray hits.
+            if not 0.0 < hit_frac <= (1.0 if scene == "clutter" else 0.5):
+                raise AssertionError(f"{scene}: hit fraction {hit_frac}")
+            if not bool(torch.isfinite(res.depth[res.hit]).all()):
+                raise AssertionError(f"{scene}: non-finite depth on hits")
+            lost, derr, n_skip, skip_err = check_cone_equiv(base, res,
+                                                            s.resolution)
+            rows = render.gather_rows_from_stats(stats)
+            cone_head = int(stats["cone_stages"][0]["head_iters"])
+            if cone_head <= 0:
+                raise AssertionError(f"{scene}: the cone head did not march")
+            share = certified_share(s, t, camera)
+            ms = cuda_ms(frame, SCHEDULE_FRAMES)
+            n_launch, busy = profile_frame(frame)
+        if scene == "sphere":
+            pole = (1.2 - 0.25) * GRID_N * RESOLUTION
+            center = float(res.depth[IMG_H // 2, IMG_W // 2])
+            if abs(center - pole) > 2 * RESOLUTION:
+                raise AssertionError(f"schedule central depth {center} m, "
+                                     f"expected ~{pole}")
+            log(f"schedule sphere: central depth {center:.6f} m (pole "
+                f"~{pole:.3f} m)")
+        fine = stats["fine_tail_iters"].tolist()
+        base_frac = float(base.hit.float().mean())
+        log(f"schedule {scene}: {ms:.3f} ms/frame = "
+            f"{IMG_W * IMG_H / (ms / 1e3):.4e} rays/s; hit fraction "
+            f"{hit_frac:.6f} (fixed march {base_frac:.6f},"
+            f" {lost} grazer hits lost, max depth diff {derr:.3e} m; "
+            f"{n_skip} grazer or budget-capped common hits past it, max "
+            f"{skip_err:.3e} m); gather "
+            f"rows/frame {rows:.0f}; certificate-retired share {share:.6f}; "
+            f"cone head iterations {cone_head}; fine tail iterations {fine};"
+            f" final sample rows {int(stats['final_sample_rows'])}; "
+            f"{n_launch} device operations/frame, {busy:.3f} ms of device "
+            f"time (idle share {1.0 - busy / ms:.3f})")
+
+
 def main():
     name = phase_device()
     phase_build()
@@ -593,11 +867,13 @@ def main():
     sweep_launches, sweep_errs, sweep_times = phase_backend_sweep(
         mask, sdf, t_edt)
     phase_render(sdf, table, camera, fixed, early)
+    phase_render_schedule(spec, sdf, table, camera, fixed)
     del table, fixed, early
     phase_gradients()
     del sdf, mask
     phase_sqrt_rounding()
     err_large = phase_large_grid()
+    probe_launches, probe_errs, probe_ms, probe_plain_ms = phase_probes()
     kernels = []
     for kname, (source, replaces, _) in KERNELS.items():
         # Launches: the main path's run for the best-first kernel, the
@@ -616,6 +892,15 @@ def main():
             "max_abs_err": max(errs),
             "ms": ty + tz,
             "plain_ms": t_edt["plain_y"] + t_edt["plain_z"],
+        })
+    for kname, (replaces, _, _) in PROBES.items():
+        # Launches: the probes' entry point's run. Times: one replica at
+        # the card's shape of that key, against the plain version.
+        kernels.append({
+            "name": kname, "route": "cuda", "source": CSRC + "probes.cu",
+            "replaces": replaces, "launches": probe_launches[kname],
+            "max_abs_err": probe_errs[kname], "ms": probe_ms[kname],
+            "plain_ms": probe_plain_ms[kname],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

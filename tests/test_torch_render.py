@@ -181,16 +181,9 @@ def test_render_gradients_match_jax(scene, table):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(coarse_factor=4),
-    dict(early_exit=True),  # tail_chunks defaults to 8, as in JAX
-    dict(early_exit=True, tail_chunks=4),
     dict(mip=object()),
     dict(remat=True),
-    dict(with_stats=True),
     dict(early_exit=True, tail_chunks=1, relax=1.5),
-    dict(t_init=torch.zeros(1)),
-    dict(sort_key=torch.zeros(1)),
-    dict(certified_miss=torch.zeros(1)),
 ])
 def test_unported_options_raise(scene, kwargs):
     _, ts, _, _ = scene

@@ -242,3 +242,22 @@ def test_origin_transform_must_be_isometry():
     with pytest.raises(ValueError, match="isometry"):
         SignedDistanceField.create(GridSpec.from_voxel_counts(0.1, (2, 2, 2)),
                                    torch.zeros(2, 2, 2), bad)
+
+
+def test_query_constants_are_cached_and_differentiable_after_inference():
+    """The hot-path constants are made once per (value, dtype, device) and
+    stay usable by autograd when first made under inference mode."""
+    from voxelized_geometry_tools_tpu_torch.core.constants import constant
+
+    spec = GridSpec.from_voxel_counts(0.1, (4, 5, 6))
+    sdf = SignedDistanceField.create(spec, torch.rand(4, 5, 6), None)
+    table = tq.build_corner_table(sdf)
+    pts = torch.tensor([[0.15, 0.2, 0.33]])
+    with torch.inference_mode():
+        tq.estimate_location_distance_fast(sdf, table, pts * 1.01)
+    assert constant(float("nan"), torch.float64, "cpu") is constant(
+        float("nan"), torch.float64, "cpu")
+    p = pts.clone().requires_grad_(True)
+    q = tq.estimate_location_distance_fast(sdf, table, p)
+    q.value.sum().backward()
+    assert bool(torch.isfinite(p.grad).all())

@@ -4,15 +4,16 @@
 The package mirrors the JAX package's layout (``core/``, ``ops/``,
 ``kernels/``) and public names. It imports ``torch`` and numpy and never
 ``jax``: plain tensor code is PyTorch, and each of the JAX package's Pallas
-EDT kernels (the parabolic-envelope passes: best-first, full sweep,
-windowed) is a hand-written CUDA kernel for Hopper (``kernels/csrc/``),
-built with ``nvcc`` at first use. Every function runs on the device of its
-input tensors.
+kernels (the EDT's parabolic-envelope passes: best-first, full sweep,
+windowed; the four primitive-rate probes) is a hand-written CUDA kernel for
+Hopper (``kernels/csrc/``), built with ``nvcc`` at first use. Every
+function runs on the device of its input tensors.
 
 Ported so far (the main path): exact two-field EDT, dense or slab-streamed
 (1024^3 on one card), with every envelope backend -> SignedDistanceField
--> corner-brick table -> sphere-traced depth render (fixed-step and
-early-exit marches), differentiable in voxel values and camera pose.
+-> corner-brick table -> sphere-traced depth render (the fixed-step march,
+differentiable in voxel values and camera pose, and the shipped early-exit
+schedule: cone prepass, block-sorted tail, sparse final sample).
 """
 
 from .core.grid import GridSpec

@@ -20,6 +20,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .constants import constant
+
 Tensor = torch.Tensor
 
 
@@ -122,28 +124,25 @@ class GridSpec:
     def grid_index_to_location_in_grid_frame(self, index: Tensor,
                                              dtype=torch.float32) -> Tensor:
         """Cell-center location in grid frame for integer index [..., 3]."""
-        sizes = torch.tensor(self.voxel_sizes, dtype=dtype,
-                             device=index.device)
-        half = torch.tensor(0.5, dtype=dtype, device=index.device)
+        sizes = constant(tuple(self.voxel_sizes), dtype, index.device)
+        half = constant(0.5, dtype, index.device)
         return (index.to(dtype) + half) * sizes
 
     def location_in_grid_frame_to_grid_index(self, p_grid: Tensor) -> Tensor:
         """floor(p / voxel size) per axis, int32; may be out of bounds."""
         p = p_grid if p_grid.is_floating_point() else p_grid.float()
-        sizes = torch.tensor(self.voxel_sizes, dtype=p.dtype, device=p.device)
+        sizes = constant(tuple(self.voxel_sizes), p.dtype, p.device)
         return torch.floor(p[..., :3] / sizes).to(torch.int32)
 
     def check_grid_index_in_bounds(self, index: Tensor) -> Tensor:
-        counts = torch.tensor(self.counts, dtype=index.dtype,
-                              device=index.device)
+        counts = constant(tuple(self.counts), index.dtype, index.device)
         return torch.all((index >= 0) & (index < counts), dim=-1)
 
 
 def get_index_values(data: Tensor, index: Tensor, oob_value) -> Tensor:
     """Gather ``data[index]``; any out-of-bounds lane returns ``oob_value``
     (indices are clamped into the grid first, then the lane is replaced)."""
-    counts = torch.tensor(data.shape[:3], dtype=index.dtype,
-                          device=index.device)
+    counts = constant(tuple(data.shape[:3]), index.dtype, index.device)
     in_bounds = torch.all((index >= 0) & (index < counts), dim=-1)
     safe = torch.minimum(torch.clamp(index, min=0), counts - 1).long()
     gathered = data[safe[..., 0], safe[..., 1], safe[..., 2]]

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from .constants import constant
+
 Tensor = torch.Tensor
 
 
@@ -28,8 +30,7 @@ def invert_isometry(m: Tensor) -> Tensor:
     """Exact inverse of an isometry: ``[R^T, -R^T t]`` (differentiable)."""
     rt = m[:3, :3].T
     t = -rotate_vector(rt, m[:3, 3])
-    bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=m.dtype,
-                          device=m.device)
+    bottom = constant(((0.0, 0.0, 0.0, 1.0),), m.dtype, m.device)
     return torch.cat([torch.cat([rt, t[:, None]], dim=1), bottom], dim=0)
 
 

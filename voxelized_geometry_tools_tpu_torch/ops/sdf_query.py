@@ -15,6 +15,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..core import transforms
+from ..core.constants import constant
 from ..core.maps import SignedDistanceField
 
 Tensor = torch.Tensor
@@ -32,8 +33,7 @@ class DistanceQuery(NamedTuple):
 def _scalar(x: float, like: Tensor, dtype=None) -> Tensor:
     """0-dim tensor of ``x`` in ``dtype`` (default ``like``'s), rounded once
     from the Python double as the JAX package rounds its constants."""
-    return torch.tensor(x, dtype=like.dtype if dtype is None else dtype,
-                        device=like.device)
+    return constant(x, like.dtype if dtype is None else dtype, like.device)
 
 
 def _axis_interp_indices(initial: Tensor, axis_size: int,
@@ -118,8 +118,7 @@ def estimate_location_distance(sdf: SignedDistanceField,
     # unselected branch's NaN/inf gradients on.
     finite = torch.all(torch.isfinite(p), dim=-1)
     valid = finite & sdf.spec.check_grid_index_in_bounds(index)
-    counts = torch.tensor(sdf.spec.counts, dtype=index.dtype,
-                          device=index.device)
+    counts = constant(tuple(sdf.spec.counts), index.dtype, index.device)
     safe_index = torch.minimum(torch.clamp(index, min=0), counts - 1)
     safe_p = torch.where(finite[..., None], p, _scalar(0.0, p))
     value = estimate_distance_interpolate(sdf, safe_p, safe_index)
@@ -215,7 +214,7 @@ def estimate_location_distance_fast(sdf: SignedDistanceField,
     valid = finite & spec.check_grid_index_in_bounds(index)
 
     s = p_safe / _scalar(spec.resolution, rows) - _scalar(0.5, rows)
-    counts = torch.tensor(spec.counts, dtype=torch.int32, device=p.device)
+    counts = constant(tuple(spec.counts), torch.int32, p.device)
     b = torch.minimum(torch.clamp(torch.floor(s).to(torch.int32), min=0),
                       torch.clamp(counts - 2, min=0))
     t = s - b.to(dt)
