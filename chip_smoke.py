@@ -7,9 +7,11 @@ parallel), checks each bit for bit against its plain PyTorch version, then
 drives the main path at full size (512^3 two-field EDT -> corner table ->
 640x480 sphere-traced renders, the scene and camera of bench.py) and the
 differentiable ``entry()``, checking every result. Then it drives every
-other EDT backend through the same 512^3 EDT, the large-grid path (a
-1024^3 signed EDT that takes the slab-streamed pipeline on its own, and a
-render from it without a corner table), the primitive-rate probes' entry
+other EDT backend through the same 512^3 EDT, the best-first kernel's
+global variant through an EDT whose axes are too long for the staged one,
+the large-grid path (a 1024^3 signed EDT that takes the slab-streamed
+pipeline on its own, and a render from it without a corner table), the
+primitive-rate probes' entry
 point (``kernels.probes.main``, the counterpart of
 benchmarks/inkernel_microbench.py) with each probe held against its plain
 version, and bench.py's shipped early-exit schedule (cone prepass, block-
@@ -32,6 +34,8 @@ import numpy as np
 import torch
 
 from voxelized_geometry_tools_tpu_torch.kernels import probes
+from voxelized_geometry_tools_tpu_torch.kernels.edt_timings import (
+    large_sphere_mask, sphere_mask, stacked_passes)
 from voxelized_geometry_tools_tpu_torch.kernels.probes import cuda_ms
 
 GRID_N = 512
@@ -41,18 +45,35 @@ NUM_STEPS = 64
 LARGE_N = 1024
 CSRC = "voxelized_geometry_tools_tpu_torch/kernels/csrc/"
 PALLAS = "voxelized_geometry_tools_tpu/kernels/edt_pallas.py:"
-# Each kernel of the port: (source, the TPU kernel it replaces, the backend
-# that runs it through the EDT).
+# Each kernel of the port: (source, the TPU kernel it replaces). The
+# best-first source holds three: the staged variant (either hoist_cmin,
+# every axis whose 32-line block fits shared memory: the main path's) and
+# the global variant with hoisted and with in-kernel chunk minima.
 KERNELS = {
-    "edt_bestfirst": (CSRC + "edt_bestfirst.cu", PALLAS + "301",
-                      "cuda-bestfirst"),
-    "edt_bestfirst_inkernel": (CSRC + "edt_bestfirst.cu", PALLAS + "241",
-                               "cuda-bestfirst"),
-    "edt_envelope": (CSRC + "edt_envelope.cu", PALLAS + "111",
-                     "cuda-envelope"),
-    "edt_windowed": (CSRC + "edt_windowed.cu", PALLAS + "161",
-                     "cuda-windowed"),
+    "edt_bestfirst_staged": (CSRC + "edt_bestfirst.cu", PALLAS + "301"),
+    "edt_bestfirst": (CSRC + "edt_bestfirst.cu", PALLAS + "301"),
+    "edt_bestfirst_inkernel": (CSRC + "edt_bestfirst.cu", PALLAS + "241"),
+    "edt_envelope": (CSRC + "edt_envelope.cu", PALLAS + "111"),
+    "edt_windowed": (CSRC + "edt_windowed.cu", PALLAS + "161"),
 }
+# The 512^3 signed EDT through each kernel backend: (backend, hoist_cmin,
+# the kernel that must run it).
+SWEEP = (("cuda-bestfirst", True, "edt_bestfirst_staged"),
+         ("cuda-bestfirst", False, "edt_bestfirst_staged"),
+         ("cuda-envelope", True, "edt_envelope"),
+         ("cuda-windowed", True, "edt_windowed"))
+# An axis too long for the staged block: the global variant's EDT grid is
+# [GLOBAL_X, GLOBAL_N, GLOBAL_N].
+GLOBAL_N, GLOBAL_X = 2048, 4
+# Envelope-kernel cases: axis lengths, the last only for the global variant.
+ENVELOPE_NS = (37, 300, 512, 513, 1024, GLOBAL_N)
+# H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM bytes/s, float32
+# add/multiply/FMA instructions/s (67 TFLOP/s counting an FMA as two
+# operations), and float32 min/max instructions/s, which issue at half that
+# rate (64 against 128 per SM per clock, CUDA C++ guide's throughput table).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 33.5e12
+F32_MINMAX_PER_S = F32_OPS_PER_S / 2
 MICROBENCH = "benchmarks/inkernel_microbench.py:"
 # The probe kernels: (the TPU kernel each replaces, the key of its time in
 # the JSON of kernels.probes.main, and the rows that time is per).
@@ -72,8 +93,13 @@ LIBRARIES = ("edt_bestfirst", "edt_envelope", "edt_windowed", "probes")
 SCHEDULE = dict(early_exit=True, coarse_factor=8, head_steps=0,
                 tail_chunks=32, cone_steps=32, cone_tail_chunks=8)
 SCHEDULE_FRAMES = 3
-# Peak device memory allowed for the streamed 1024^3 signed EDT.
-STREAMED_PEAK_GIB = 20.0
+# Device memory the streamed 1024^3 signed EDT may allocate (its peak less
+# what was allocated before the call, so the small tensors that earlier
+# phases leave do not count): what the call allocated before the staged
+# kernel, kernels/edt_timings.py's streamed_growth_bytes on the commit before
+# it, on an H100 (set by the signed combine; with the 1 GiB mask held, a
+# peak of 13.75 GiB).
+STREAMED_GROWTH_BYTES = 13_690_213_376
 # Render contract (as tests/test_torch_render.py): depth within 1e-4 m on
 # common hits; hit flips only on tangent grazers, at most 0.5% of pixels.
 DEPTH_ATOL = 1e-4
@@ -113,12 +139,14 @@ def kernel_modules():
 
 
 def kernel_fns():
-    """Each kernel's wrapper, by the names of ``KERNELS``."""
+    """Each kernel's wrapper, by the names of ``KERNELS`` (the best-first
+    variants forced: the staged one raises where its block does not fit)."""
     eb, ee, ew = kernel_modules()
     return {
-        "edt_bestfirst": eb.parabolic_envelope_last,
+        "edt_bestfirst_staged": eb.parabolic_envelope_last_staged,
+        "edt_bestfirst": eb.parabolic_envelope_last_global,
         "edt_bestfirst_inkernel": functools.partial(
-            eb.parabolic_envelope_last, hoist_cmin=False),
+            eb.parabolic_envelope_last_global, hoist_cmin=False),
         "edt_envelope": ee.parabolic_envelope_last,
         "edt_windowed": ew.parabolic_envelope_last,
     }
@@ -126,14 +154,38 @@ def kernel_fns():
 
 def reset_launches():
     eb, ee, ew = kernel_modules()
-    eb.launches = eb.launches_inkernel = ee.launches = ew.launches = 0
+    eb.launches_staged = eb.launches = eb.launches_inkernel = 0
+    ee.launches = ew.launches = 0
 
 
 def read_launches():
     eb, ee, ew = kernel_modules()
-    return {"edt_bestfirst": eb.launches,
+    return {"edt_bestfirst_staged": eb.launches_staged,
+            "edt_bestfirst": eb.launches,
             "edt_bestfirst_inkernel": eb.launches_inkernel,
             "edt_envelope": ee.launches, "edt_windowed": ew.launches}
+
+
+@contextlib.contextmanager
+def counting_calls(module, names, calls):
+    """Counts the calls of each ``module.<name>`` in ``calls[name]`` while
+    the context is open (callers look the function up at each call)."""
+    saved = {name: getattr(module, name) for name in names}
+
+    def counted(name, fn):
+        def wrapper(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    for name, fn in saved.items():
+        calls[name] = 0
+        setattr(module, name, counted(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
 
 
 def phase_build():
@@ -157,43 +209,47 @@ def phase_build():
                 log(f"  ptxas {name}: {line.strip()}")
 
 
-def envelope_cases():
-    """Random fields (+inf, negative values), degenerate fields, n in {37,
-    300, 512, 513}, ragged line counts and strided layouts."""
-    rng = np.random.default_rng(0)
+def _field_cases(rng, lo, p_inf_line):
+    """Random fields in [lo, 400) with +inf holes (and, with p_inf_line,
+    whole +inf lines) for every n of ENVELOPE_NS, in both pass layouts:
+    positions contiguous (the z pass's; ragged line counts) and lines
+    contiguous (moved views, the y pass's), plus a base that is not 16-byte
+    aligned and sparse seeds in the moved layout."""
+    def field(shape):
+        f = rng.uniform(lo, 400.0, shape).astype(np.float32)
+        f[rng.uniform(size=shape) < 0.5] = np.inf
+        if p_inf_line and len(shape) > 1:
+            f[..., rng.uniform(size=shape[-2]) < p_inf_line, :] = np.inf
+        return torch.from_numpy(f).cuda()
+
     cases = []
-    for n in (37, 300, 512, 513):
+    for n in ENVELOPE_NS:
         for shape in [(n,), (77, n), (3, 45, n), (2, 1000, n)]:
-            f = rng.uniform(-60.0, 400.0, shape).astype(np.float32)
-            f[rng.uniform(size=shape) < 0.5] = np.inf
-            cases.append((f"random{shape}", torch.from_numpy(f).cuda()))
-        # The y pass's layout: the transformed axis is not the last in
-        # memory (a moved view, read in place by the kernel).
+            cases.append((f"z-layout{shape}", field(shape)))
+        for shape in [(3, n, 45), (2, n, 1000)]:
+            cases.append((f"y-layout{shape}", field(shape).movedim(1, -1)))
+        cases.append((f"offset(5,33,{n})", field((5, 33, n + 1))[..., 1:]))
         sparse = np.where(rng.random((5, n, 70)) < 0.01, 0.0, np.inf)
         x = torch.from_numpy(sparse.astype(np.float32)).cuda()
-        cases.append((f"sparse-seeds-moved(5,70,{n})", x.movedim(1, -1)))
+        cases.append((f"sparse-seeds-y-layout(5,70,{n})", x.movedim(1, -1)))
+    return cases
+
+
+def envelope_cases():
+    """Random fields (+inf, negative values) and the degenerate fills, in
+    both layouts (``_field_cases``)."""
+    cases = _field_cases(np.random.default_rng(0), -60.0, 0.0)
     for fill in (np.inf, 0.0, 1e6, -3.0):
-        cases.append((f"fill={fill}",
-                      torch.full((6, 40, 129), fill, device="cuda")))
+        x = torch.full((6, 40, 129), fill, device="cuda")
+        cases += [(f"fill={fill}", x), (f"fill={fill}-y-layout",
+                                        x.movedim(1, -1))]
     return cases
 
 
 def nonneg_envelope_cases():
     """The cases the windowed kernel is exact on (f >= 0): random fields
-    with +inf holes and whole +inf lines, sparse seeds in the moved layout,
-    and the non-negative fills."""
-    rng = np.random.default_rng(1)
-    cases = []
-    for n in (37, 300, 512, 513):
-        for shape in [(n,), (77, n), (3, 45, n), (2, 1000, n)]:
-            f = rng.uniform(0.0, 400.0, shape).astype(np.float32)
-            f[rng.uniform(size=shape) < 0.5] = np.inf
-            if len(shape) > 1:
-                f[..., rng.uniform(size=shape[-2]) < 0.2, :] = np.inf
-            cases.append((f"nonneg{shape}", torch.from_numpy(f).cuda()))
-        sparse = np.where(rng.random((5, n, 70)) < 0.01, 0.0, np.inf)
-        x = torch.from_numpy(sparse.astype(np.float32)).cuda()
-        cases.append((f"sparse-seeds-moved(5,70,{n})", x.movedim(1, -1)))
+    with +inf holes and whole +inf lines, and the non-negative fills."""
+    cases = _field_cases(np.random.default_rng(1), 0.0, 0.2)
     for fill in (np.inf, 0.0, 1e6):
         cases.append((f"fill={fill}",
                       torch.full((6, 40, 129), fill, device="cuda")))
@@ -201,8 +257,10 @@ def nonneg_envelope_cases():
 
 
 def phase_kernel_vs_plain():
-    """Every kernel bitwise against the plain version; the windowed kernel
-    on f >= 0 only. Returns the largest error per kernel."""
+    """Every kernel bitwise against the plain version: the staged variant
+    on every case whose block fits (the global variants on all, the
+    windowed kernel on f >= 0 only). Returns the largest error per
+    kernel."""
     from voxelized_geometry_tools_tpu_torch.kernels import edt_bestfirst as k
     signed, nonneg = envelope_cases(), nonneg_envelope_cases()
     refs = [k.parabolic_envelope_last_plain(f) for _, f in signed + nonneg]
@@ -211,7 +269,10 @@ def phase_kernel_vs_plain():
         cases = list(zip(signed + nonneg, refs))
         if kname == "edt_windowed":
             cases = cases[len(signed):]
+        if kname == "edt_bestfirst_staged":
+            cases = [c for c in cases if k.plan_lines(c[0][1])[0].staged]
         worst[kname] = 0.0
+        layouts = set()
         for (name, f), ref in cases:
             got = fn(f)
             torch.cuda.synchronize()
@@ -220,15 +281,12 @@ def phase_kernel_vs_plain():
             if not torch.equal(got, ref):
                 raise AssertionError(f"{kname} != plain on {name}: max abs "
                                      f"err {err}")
-        log(f"kernel vs plain: {kname}: {len(cases)} cases bitwise equal")
+            layouts.add(k.plan_lines(f)[0].lines_contiguous)
+        if kname == "edt_bestfirst_staged" and layouts != {False, True}:
+            raise AssertionError("the staged cases miss a layout")
+        log(f"kernel vs plain: {kname}: {len(cases)} cases bitwise equal "
+            f"(n up to {max(f.shape[-1] for (_, f), _ in cases)})")
     return worst
-
-
-def sphere_mask(n, device):
-    ax = torch.arange(n, device=device, dtype=torch.float32)
-    c, r = n / 2.0, n / 4.0
-    return ((ax[:, None, None] - c) ** 2 + (ax[None, :, None] - c) ** 2
-            + (ax[None, None, :] - c) ** 2) <= r * r
 
 
 def phase_main_path():
@@ -245,8 +303,12 @@ def phase_main_path():
                                          device="cuda")
     torch.cuda.synchronize()
 
+    eb, _, _ = kernel_modules()
+    calls = {}
     reset_launches()
-    with torch.no_grad():
+    # The global variant's minima pass and its transposing line view.
+    with counting_calls(eb, ("_chunk_minima", "launch_on_lines"), calls), \
+            torch.no_grad():
         sdf = edt.extract_signed_distance_field(mask, spec, None,
                                                 frame="bench")
         table = sdf_query.build_corner_table(sdf)
@@ -257,13 +319,16 @@ def phase_main_path():
                                     tail_chunks=1)
     torch.cuda.synchronize()
     counts = read_launches()
-    launches = counts["edt_bestfirst"]
-    log(f"main path: launches {counts}")
+    launches = counts["edt_bestfirst_staged"]
+    log(f"main path: launches {counts}; calls {calls}")
     if launches != 2:
-        raise AssertionError(f"the {GRID_N}^3 EDT launched the kernel {launches} "
-                             "times, expected 2 (y and z passes)")
+        raise AssertionError(f"the {GRID_N}^3 EDT launched the staged kernel "
+                             f"{launches} times, expected 2 (y and z passes)")
     if sum(counts.values()) != launches:
         raise AssertionError(f"the main path launched another kernel: {counts}")
+    if any(calls.values()):
+        raise AssertionError(f"the main path ran the global variant's minima "
+                             f"or transposing view: {calls}")
     return spec, mask, sdf, table, camera, fixed, early, launches
 
 
@@ -293,89 +358,233 @@ def phase_edt_checks(mask, sdf):
     log("edt 128^3: squared EDT == scipy.ndimage.distance_transform_edt^2")
 
     # Per-pass times on the main path's stacked [1024, 512, 512] field.
-    d = torch.cat([
-        edt._binary_squared_dist_last(m.movedim(0, -1)).movedim(-1, 0)
-        for m in (mask, ~mask)])
-    fy = d.movedim(1, -1)
-    dz = k.parabolic_envelope_last(fy).movedim(-1, 1)
+    fy, dz, ry, rz = stacked_passes(mask)
+    for name, x, r in (("y", fy, ry), ("z", dz, rz)):
+        plan, _ = k.plan_lines(x)
+        if not plan.staged or plan.copy or r.stride() != x.stride():
+            raise AssertionError(f"{name} pass: {plan}, output strides "
+                                 f"{r.stride()} for input {x.stride()}")
+        log(f"edt {name} pass: {plan}; output strides {r.stride()} == "
+            "input's (read and written in place)")
     t = {}
-    t["kernel_y"] = cuda_ms(lambda: k.parabolic_envelope_last(fy), 5)
-    t["kernel_z"] = cuda_ms(lambda: k.parabolic_envelope_last(dz), 5)
-    t["plain_y"] = cuda_ms(lambda: k.parabolic_envelope_last_plain(fy), 1)
-    t["plain_z"] = cuda_ms(lambda: k.parabolic_envelope_last_plain(dz), 1)
-    ft_z = dz.transpose(1, 2).contiguous()
-    t["minima_y"] = cuda_ms(lambda: k._chunk_minima(fy.transpose(1, 2)), 5)
-    t["transpose_z"] = cuda_ms(lambda: dz.transpose(1, 2).contiguous(), 5)
-    t["minima_z"] = cuda_ms(lambda: k._chunk_minima(ft_z), 5)
+    for name, x in (("y", fy), ("z", dz)):
+        t[f"wrapper_{name}"] = cuda_ms(lambda: k.parabolic_envelope_last(x),
+                                       5)
+        t[f"kernel_{name}"] = cuda_ms(staged_kernel_only(x), 5)
+        t[f"plain_{name}"] = cuda_ms(
+            lambda: k.parabolic_envelope_last_plain(x), 1)
+        # The global variant (the kernel before the staged one) on the same
+        # field: alone, with its wrapper, and its minima pass and transposed
+        # copy.
+        ft = x.transpose(-1, -2)
+        t[f"transpose_{name}"] = (cuda_ms(lambda: ft.contiguous(), 5)
+                                  if not ft.is_contiguous() else 0.0)
+        ft = ft.contiguous()
+        t[f"minima_{name}"] = cuda_ms(lambda: k._chunk_minima(ft), 5)
+        t[f"global_kernel_{name}"] = cuda_ms(global_kernel_only(ft), 5)
+        t[f"global_wrapper_{name}"] = cuda_ms(
+            lambda: k.parabolic_envelope_last_global(x), 5)
     t["edt_total"] = cuda_ms(lambda: edt.signed_distance_from_filled_mask(
         mask, RESOLUTION), 3)
-    del d, fy, dz, ft_z
     for key, ms in t.items():
         log(f"edt time {key}: {ms:.3f} ms")
+    log("edt time staged minima_y, minima_z, transpose_z: not run (the "
+        "staged kernel forms its minima in shared memory and reads both "
+        "layouts in place)")
     log(f"edt {GRID_N}^3 two-field: {GRID_N ** 3 / (t['edt_total'] / 1e3):.4e} "
         "voxels/s")
-    return t, err
+    bounds = {}
+    for name, x, r in (("y", fy, ry), ("z", dz, rz)):
+        bounds[name] = envelope_bound(x)
+        share = bounds[name]["bound_ms"] / t[f"kernel_{name}"]
+        log(f"edt {name} pass bound: {bounds[name]}; staged kernel "
+            f"{t[f'kernel_{name}']:.4f} ms, bound / time {share:.3f}")
+        for tile_q in (k.TILE_Q, 16):
+            log(f"edt {name} pass visit count, {tile_q}-position tiles: "
+                f"{visit_arithmetic(x, r, tile_q)}")
+    del fy, dz, ry, rz
+    return t, err, bounds
+
+
+def staged_kernel_only(x):
+    """A call of the staged kernel alone on ``x`` (planned and its output
+    allocated once)."""
+    from voxelized_geometry_tools_tpu_torch.kernels import edt_bestfirst as k
+    plan, x3 = k.plan_lines(x)
+    out3 = k.staged_output(plan, x3)
+    return lambda: k.launch_staged(plan, x3, out3)
+
+
+def global_kernel_only(ft, hoist_cmin=True):
+    """A call of the global variant's kernel alone on ``ft`` ([B, n, L],
+    lines contiguous), its chunk minima and output made once."""
+    from voxelized_geometry_tools_tpu_torch.kernels import edt_bestfirst as k
+    b, n, lines = ft.shape
+    cmin = k._chunk_minima(ft) if hoist_cmin else None
+    out = torch.empty_like(ft)
+    args = (ft.data_ptr(), None if cmin is None else cmin.data_ptr(),
+            out.data_ptr(), b, n, lines, *ft.stride(), *k._stream_args(ft))
+
+    def run():
+        if k._launcher()(*args) != 0:
+            raise AssertionError("global best-first launch failed")
+    return run
+
+
+def envelope_bound(x):
+    """The least time of one envelope pass over ``x`` on the H100, whatever
+    the kernel: the larger of its bytes (``x`` read once, the result written
+    once) at the HBM rate and its operations at the float32 rate, counted as
+    one add per output, since no exact kernel forms fewer than one candidate
+    per output (how many more it forms is its algorithm's, not the
+    function's)."""
+    bytes_ms = 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3
+    ops_ms = x.numel() / F32_OPS_PER_S * 1e3
+    return {"bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def visit_arithmetic(x, r, tile_q):
+    """What a pass ordered and stopped by tile-level bounds computes on
+    ``x`` (result ``r``), in tiles of ``tile_q`` positions (``visit_count``):
+    its candidates per output, and their time on the H100 at one add (float32
+    rate) and one min (min/max rate) each. Not a floor: the staged kernel's
+    test of 8-position groups computes fewer candidates."""
+    from voxelized_geometry_tools_tpu_torch.kernels import edt_bestfirst as k
+    vc = k.visit_count(x, r, tile_q=tile_q)
+    ms = vc["candidates"] * (1 / F32_OPS_PER_S + 1 / F32_MINMAX_PER_S) * 1e3
+    return {"candidates_per_output": vc["candidates"] / vc["outputs"],
+            "chunks_per_tile": vc["chunks"] / vc["tiles"],
+            "arithmetic_ms": ms}
+
+
+def bound_of(n_bytes, n_ops):
+    """``(ms, what binds)``: the larger of ``n_bytes`` at the HBM rate and
+    ``n_ops`` float32 operations at the float32 rate."""
+    b = n_bytes / HBM_BYTES_PER_S * 1e3
+    o = n_ops / F32_OPS_PER_S * 1e3
+    return (b, "bytes") if b >= o else (o, "operations")
+
+
+def summed_bound(parts):
+    """One bound for several passes: the larger of their summed byte times
+    and their summed operation times."""
+    b = sum(p["bytes_ms"] for p in parts)
+    o = sum(p["ops_ms"] for p in parts)
+    return max(b, o), "bytes" if b >= o else "operations"
 
 
 @contextlib.contextmanager
-def bestfirst_inkernel_minima():
-    """Routes ``backend="cuda-bestfirst"`` to the best-first kernel with
-    ``hoist_cmin=False`` (the EDT looks the wrapper up at each call)."""
+def bestfirst_hoist(hoist_cmin):
+    """Routes ``backend="cuda-bestfirst"`` to the best-first wrapper with
+    ``hoist_cmin`` (the EDT looks the wrapper up at each call)."""
     eb, _, _ = kernel_modules()
-    hoisted = eb.parabolic_envelope_last
-    eb.parabolic_envelope_last = functools.partial(hoisted, hoist_cmin=False)
+    wrapper = eb.parabolic_envelope_last
+    eb.parabolic_envelope_last = functools.partial(wrapper,
+                                                   hoist_cmin=hoist_cmin)
     try:
         yield
     finally:
-        eb.parabolic_envelope_last = hoisted
+        eb.parabolic_envelope_last = wrapper
+
+
+def edt_through(mask, backend, hoist_cmin, kname, ref, what):
+    """The signed EDT of ``mask`` through ``backend``: it must launch
+    ``kname`` exactly twice (y and z passes) and nothing else, and give
+    ``ref``'s bits. Returns the launches and the largest error."""
+    from voxelized_geometry_tools_tpu_torch.ops import edt
+
+    torch.cuda.synchronize()
+    reset_launches()
+    with bestfirst_hoist(hoist_cmin):
+        got = edt.signed_distance_from_filled_mask(mask, RESOLUTION,
+                                                   backend=backend)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    if counts[kname] != 2 or sum(counts.values()) != 2:
+        raise AssertionError(f"{what} via {backend} (hoist_cmin="
+                             f"{hoist_cmin}): launches {counts}, expected 2 "
+                             f"of {kname}")
+    err = max_abs_err(got, ref)
+    if not torch.equal(got, ref):
+        raise AssertionError(f"{what} via {kname} != reference, max abs "
+                             f"err {err}")
+    log(f"{what} via backend {backend!r} (hoist_cmin={hoist_cmin}): "
+        f"bitwise equal, 2 launches of {kname}")
+    return counts[kname], err
+
+
+def time_passes(fns, fy, dz):
+    """Each wrapper's y- and z-pass times on one field."""
+    times = {}
+    for kname, fn in fns.items():
+        reps = 2 if kname == "edt_envelope" else 5
+        times[kname] = (cuda_ms(lambda: fn(fy), reps),
+                        cuda_ms(lambda: fn(dz), reps))
+    return times
 
 
 def phase_backend_sweep(mask, sdf, t_plain):
-    """The 512^3 signed EDT through every kernel backend: each must give the
-    main path's bits (held against plain in phase_edt_checks) through its
-    own kernel, two launches each; then each kernel's y- and z-pass times
-    on the main path's stacked field. The plain passes were timed in
-    phase_edt_checks (same function), so they are not run again."""
-    from voxelized_geometry_tools_tpu_torch.ops import edt
+    """The 512^3 signed EDT through every kernel backend (the best-first one
+    with both hoist_cmin, each the staged variant): each must give the main
+    path's bits (held against plain in phase_edt_checks) through its own
+    kernel, two launches each; then every wrapper's y- and z-pass times on
+    the main path's stacked field, the global best-first variants forced.
+    The plain passes and the bounds are phase_edt_checks' (same function,
+    same field)."""
+    launches, errs = {}, {}
+    for backend, hoist, kname in SWEEP:
+        n_launch, err = edt_through(mask, backend, hoist, kname,
+                                    sdf.distances, f"edt {GRID_N}^3")
+        launches[kname] = n_launch
+        errs[kname] = max(errs.get(kname, 0.0), err)
 
-    fns = kernel_fns()
-    launches, errs, times = {}, {}, {}
-    for kname, (_, _, backend) in KERNELS.items():
-        route = (bestfirst_inkernel_minima() if kname == "edt_bestfirst_inkernel"
-                 else contextlib.nullcontext())
-        torch.cuda.synchronize()
-        reset_launches()
-        with route:
-            got = edt.signed_distance_from_filled_mask(mask, RESOLUTION,
-                                                       backend=backend)
-        torch.cuda.synchronize()
-        counts = read_launches()
-        launches[kname] = counts[kname]
-        if counts[kname] != 2 or sum(counts.values()) != 2:
-            raise AssertionError(f"backend {backend} ({kname}): launches "
-                                 f"{counts}, expected 2 of {kname}")
-        errs[kname] = max_abs_err(got, sdf.distances)
-        if not torch.equal(got, sdf.distances):
-            raise AssertionError(f"{GRID_N}^3 EDT via {kname} != main path, "
-                                 f"max abs err {errs[kname]}")
-        del got
-        log(f"edt {GRID_N}^3 via {kname} (backend {backend!r}): == main path "
-            "(bitwise), 2 launches")
-
-    d = torch.cat([
-        edt._binary_squared_dist_last(m.movedim(0, -1)).movedim(-1, 0)
-        for m in (mask, ~mask)])
-    fy = d.movedim(1, -1)
-    dz = fns["edt_bestfirst"](fy).movedim(-1, 1)
-    for kname, fn in fns.items():
-        reps = 2 if kname == "edt_envelope" else 5
-        ty = cuda_ms(lambda: fn(fy), reps)
-        tz = cuda_ms(lambda: fn(dz), reps)
-        times[kname] = (ty, tz)
+    fy, dz, ry, rz = stacked_passes(mask)
+    times = time_passes(kernel_fns(), fy, dz)
+    for kname, (ty, tz) in times.items():
         log(f"edt time {kname}: y {ty:.3f} ms, z {tz:.3f} ms (plain y "
             f"{t_plain['plain_y']:.3f} ms, z {t_plain['plain_z']:.3f} ms)")
-    del d, fy, dz
+    del fy, dz, ry, rz
     return launches, errs, times
+
+
+def phase_global_variant():
+    """An axis too long for the staged block: the signed EDT of a [4, 2048,
+    2048] grid takes the best-first kernel's global variant on its own, for
+    both hoist_cmin, and must equal the plain backend bit for bit; then the
+    global variants' per-pass times, the plain passes' and the bounds on
+    that grid's stacked field."""
+    from voxelized_geometry_tools_tpu_torch.kernels import edt_bestfirst as k
+    from voxelized_geometry_tools_tpu_torch.ops import edt
+
+    n = GLOBAL_N
+    ax = torch.arange(n, device="cuda", dtype=torch.float32)
+    mask = (((ax[:, None] - 0.4 * n) ** 2 + (ax[None, :] - 0.6 * n) ** 2
+             <= (0.2 * n) ** 2)[None].expand(GLOBAL_X, n, n).clone())
+    mask[:, 50:90, 1500:1900] = True
+    plain = edt.signed_distance_from_filled_mask(mask, RESOLUTION,
+                                                 backend="plain")
+    launches, errs = {}, {}
+    for hoist, kname in ((True, "edt_bestfirst"),
+                         (False, "edt_bestfirst_inkernel")):
+        launches[kname], errs[kname] = edt_through(
+            mask, "cuda-bestfirst", hoist, kname, plain,
+            f"edt [{GLOBAL_X}, {n}, {n}]")
+    fy, dz, _, _ = stacked_passes(mask)
+    for x in (fy, dz):
+        if k.plan_lines(x)[0].staged:
+            raise AssertionError(f"an axis of {n} planned the staged variant")
+    fns = kernel_fns()
+    times = time_passes({name: fns[name] for name in launches}, fy, dz)
+    plain_ms = (cuda_ms(lambda: k.parabolic_envelope_last_plain(fy), 1),
+                cuda_ms(lambda: k.parabolic_envelope_last_plain(dz), 1))
+    bounds = [envelope_bound(fy), envelope_bound(dz)]
+    for kname, (ty, tz) in times.items():
+        log(f"edt [{GLOBAL_X}, {n}, {n}] time {kname}: y {ty:.3f} ms, z "
+            f"{tz:.3f} ms (plain y {plain_ms[0]:.3f} ms, z "
+            f"{plain_ms[1]:.3f} ms); bounds {bounds}")
+    return launches, errs, times, plain_ms, bounds
 
 
 def phase_sqrt_rounding():
@@ -393,15 +602,6 @@ def phase_sqrt_rounding():
         f"rounded); cuda float32 differs from it on {differ} of {x.numel()}")
 
 
-def large_sphere_mask(n, device):
-    """benchmarks/large_grid.py's scene: a centered sphere of radius n/4,
-    built on the card."""
-    ax = (torch.arange(n, device=device, dtype=torch.float32)
-          - (n - 1) / 2.0) ** 2
-    return (ax[:, None, None] + ax[None, :, None]
-            + ax[None, None, :]) <= (n / 4.0) ** 2
-
-
 def streamed_launches(shape, slab=128):
     """Envelope launches of one streamed two-field EDT, from the schedule:
     one per slab, for each envelope pass, for each field."""
@@ -414,6 +614,27 @@ def streamed_launches(shape, slab=128):
             size, pad = edt._slab_schedule(n_s, slab)
             per_field += (n_s + pad) // size
     return 2 * per_field
+
+
+def slab_passes(mask, slab=128):
+    """The staged kernel alone on the first [slab, n, n] slab of the
+    streamed pipeline's y and z passes (in place: the y pass reads a moved
+    view of the slab), with each pass's bound and visit count."""
+    from voxelized_geometry_tools_tpu_torch.kernels import edt_bestfirst as k
+    from voxelized_geometry_tools_tpu_torch.ops import edt
+
+    d = edt._streamed_binary_axis0(mask, slab).narrow(0, 0, slab)
+    fy = d.movedim(1, -1)
+    ry = k.parabolic_envelope_last(fy)
+    dz = ry.movedim(-1, 1)
+    rz = k.parabolic_envelope_last(dz)
+    for name, x, r in (("y", fy, ry), ("z", dz, rz)):
+        ms = cuda_ms(staged_kernel_only(x), 5)
+        b = envelope_bound(x)
+        log(f"large slab {tuple(d.shape)} {name} pass: staged kernel "
+            f"{ms:.4f} ms; plan {k.plan_lines(x)[0]}; bound {b}; bound / "
+            f"time {b['bound_ms'] / ms:.3f}; visit count "
+            f"{visit_arithmetic(x, r, k.TILE_Q)}")
 
 
 def phase_large_grid():
@@ -439,19 +660,23 @@ def phase_large_grid():
                                                 frame="large")
     torch.cuda.synchronize()
     t_extract = time.monotonic() - t0
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    peak_bytes = torch.cuda.max_memory_allocated()
+    growth = peak_bytes - before
     counts = read_launches()
-    launches = counts["edt_bestfirst"]
+    launches = counts["edt_bestfirst_staged"]
     log(f"large {n}^3: extract_signed_distance_field {t_extract * 1e3:.1f} ms"
         f" (first call, min/max included); launches {counts}, schedule "
-        f"expects {expected} of edt_bestfirst")
+        f"expects {expected} of edt_bestfirst_staged")
     if launches != expected or sum(counts.values()) != expected:
         raise AssertionError(f"streamed {n}^3 EDT launched {counts}, the "
                              f"schedule expects {expected}")
-    log(f"large {n}^3: peak device memory of the streamed call {peak:.3f} "
-        f"GiB ({before / 2 ** 30:.3f} GiB held before it)")
-    if peak > STREAMED_PEAK_GIB:
-        raise AssertionError(f"streamed {n}^3 EDT peaked at {peak:.3f} GiB")
+    log(f"large {n}^3: peak device memory of the streamed call "
+        f"{peak_bytes / 2 ** 30:.6f} GiB, {peak_bytes} bytes, of which the "
+        f"call allocated {growth} ({before} held before it)")
+    if growth > STREAMED_GROWTH_BYTES:
+        raise AssertionError(f"streamed {n}^3 EDT allocated {growth} bytes "
+                             f"above what it was given, more than "
+                             f"{STREAMED_GROWTH_BYTES}")
     values = sdf.distances
     center = float(values[n // 2, n // 2, n // 2])
     corner = float(values[0, 0, 0])
@@ -463,6 +688,7 @@ def phase_large_grid():
         mask, RESOLUTION), 2)
     log(f"large {n}^3 streamed two-field EDT: {t_edt:.3f} ms = "
         f"{n ** 3 / (t_edt / 1e3):.4e} voxels/s")
+    slab_passes(mask)
 
     torch.cuda.reset_peak_memory_stats()
     dense = edt.signed_distance_from_filled_mask(mask, RESOLUTION)
@@ -692,14 +918,53 @@ def phase_probes():
         "vmem_batch_march": cuda_ms(lambda: probes.vmem_batch_march_plain(
             table, t0, probes.MARCH_STEPS), 3),
     }
+    # One PyTorch call per probe that moves the same rows, its indices made
+    # before timing (a fresh sequence per call for the device-memory
+    # probe's, as the probe reads); the march probe has none.
+    def rows_of(seed, iters, n_rows):
+        return torch.from_numpy(probes.lcg_indices(seed, iters,
+                                                   n_rows)).to(dev)
+
+    gidx = rows_of(probes.GATHER_SEED, probes.GATHER_ITERS, probes.TABLE_ROWS)
+    sidx = rows_of(probes.SCATTER_SEED, probes.SCATTER_ITERS, 4096)
+    src = mask.expand(probes.SCATTER_ITERS, probes.WIDTH).contiguous()
+    acc = torch.zeros(4096, probes.WIDTH, device=dev)
+    didx = [rows_of(seed, probes.DMA_ITERS, probes.DMA_ROWS) for seed in
+            probes.fresh_seeds(probes.DMA_SEED, 12, 1, probes.DMA_ITERS)]
+    dma_rows = iter(didx)
+    library_ms = {
+        "vmem_gather": cuda_ms(lambda: torch.index_select(table, 0, gidx),
+                               10),
+        "vmem_scatter": cuda_ms(lambda: acc.index_add_(0, sidx, src), 10),
+        "hbm_dma": cuda_ms(lambda: torch.index_select(big, 0,
+                                                      next(dma_rows)), 10),
+        "vmem_batch_march": None,
+    }
+    # Bytes (each input read once, each output written once; the rows the
+    # device-memory probe reads, not its whole table) and float32 operations
+    # of one replica at the timed shape.
+    w, dw = probes.WIDTH, probes.DMA_WIDTH
+    work = {
+        "vmem_gather": (4 * (probes.TABLE_ROWS * w + w),
+                        probes.GATHER_ITERS * w),
+        "vmem_scatter": (4 * (w + 4096 * w), probes.SCATTER_ITERS * w),
+        "hbm_dma": (4 * (probes.DMA_ITERS * dw + dw),
+                    (probes.DMA_ITERS - 8) * dw),
+        "vmem_batch_march": (4 * (probes.TABLE_ROWS * w + 2 * 256),
+                             probes.MARCH_STEPS * 256 * (2 * w + 2)),
+    }
+    bounds = {name: bound_of(b, o) for name, (b, o) in work.items()}
     kernel_ms = {}
     for name, (_, key, rows) in PROBES.items():
         kernel_ms[name] = rates[key] * rows / 1e6
+        lib = library_ms[name]
         log(f"probe {name}: {rates[key]:.4f} ns/row with 1 replica "
             f"({kernel_ms[name]:.4f} ms), {rates['full_card'][key]:.4f} "
             f"ns/row over {full} replicas; plain version "
-            f"{plain_ms[name]:.4f} ms (index generation included)")
-    return launches, worst, kernel_ms, plain_ms
+            f"{plain_ms[name]:.4f} ms (index generation included); library "
+            f"call {'none' if lib is None else f'{lib:.4f} ms'}; bound "
+            f"{bounds[name][0]:.6f} ms ({bounds[name][1]})")
+    return launches, worst, kernel_ms, plain_ms, library_ms, bounds
 
 
 def check_cone_equiv(base, cone, resolution):
@@ -863,44 +1128,64 @@ def main():
         phase_main_path()
     log(f"peak device memory, main path: "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
-    t_edt, err_edt = phase_edt_checks(mask, sdf)
-    sweep_launches, sweep_errs, sweep_times = phase_backend_sweep(
-        mask, sdf, t_edt)
+    t_edt, err_edt, pass_bounds = phase_edt_checks(mask, sdf)
+    sweep_launches, sweep_errs, sweep_times = \
+        phase_backend_sweep(mask, sdf, t_edt)
     phase_render(sdf, table, camera, fixed, early)
     phase_render_schedule(spec, sdf, table, camera, fixed)
     del table, fixed, early
     phase_gradients()
     del sdf, mask
+    glob_launches, glob_errs, glob_times, glob_plain, glob_bounds = \
+        phase_global_variant()
     phase_sqrt_rounding()
     err_large = phase_large_grid()
-    probe_launches, probe_errs, probe_ms, probe_plain_ms = phase_probes()
+    (probe_launches, probe_errs, probe_ms, probe_plain_ms, probe_library_ms,
+     probe_bounds) = phase_probes()
+    plain_512 = t_edt["plain_y"] + t_edt["plain_z"]
     kernels = []
-    for kname, (source, replaces, _) in KERNELS.items():
-        # Launches: the main path's run for the best-first kernel, the
-        # 512^3 backend sweep's run for the others. Times (backend sweep):
-        # one 512^3 two-field EDT's y + z envelope passes, wrapper included
-        # (chunk minima, z-pass transpose), against the plain version of
-        # the same two passes.
-        first = kname == "edt_bestfirst"
-        errs = [err_cases[kname], sweep_errs[kname]]
-        errs += [err_edt, err_large] if first else []
-        ty, tz = sweep_times[kname]
+    for kname, (source, replaces) in KERNELS.items():
+        # Each envelope kernel's y + z passes, wrapper included, against the
+        # plain version and the bound of the same passes. The staged
+        # variant: the main path's launches and its 512^3 field. The global
+        # variants: the [4, 2048, 2048] EDT's launches and field. The full
+        # sweep and the windowed walk: the 512^3 backend sweep's launches
+        # and the main path's field.
+        errs = [err_cases[kname]]
+        parts = [pass_bounds["y"], pass_bounds["z"]]
+        if kname == "edt_bestfirst_staged":
+            n_launch, errs = launches, errs + [sweep_errs[kname], err_edt,
+                                               err_large]
+            ms = t_edt["wrapper_y"] + t_edt["wrapper_z"]
+            plain_ms = plain_512
+        elif kname in glob_launches:
+            n_launch, errs = glob_launches[kname], errs + [glob_errs[kname]]
+            ms, plain_ms, parts = sum(glob_times[kname]), sum(glob_plain), \
+                glob_bounds
+        else:
+            n_launch, errs = sweep_launches[kname], errs + [sweep_errs[kname]]
+            ms, plain_ms = sum(sweep_times[kname]), plain_512
+        bound_ms, bound_by = summed_bound(parts)
         kernels.append({
             "name": kname, "route": "cuda", "source": source,
-            "replaces": replaces,
-            "launches": launches if first else sweep_launches[kname],
-            "max_abs_err": max(errs),
-            "ms": ty + tz,
-            "plain_ms": t_edt["plain_y"] + t_edt["plain_z"],
+            "replaces": replaces, "launches": n_launch,
+            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            # No single PyTorch call computes the min-plus transform.
+            "library_ms": None,
         })
     for kname, (replaces, _, _) in PROBES.items():
         # Launches: the probes' entry point's run. Times: one replica at
-        # the card's shape of that key, against the plain version.
+        # the card's shape of that key, against the plain version and the
+        # library call that moves the same rows.
         kernels.append({
             "name": kname, "route": "cuda", "source": CSRC + "probes.cu",
             "replaces": replaces, "launches": probe_launches[kname],
             "max_abs_err": probe_errs[kname], "ms": probe_ms[kname],
             "plain_ms": probe_plain_ms[kname],
+            "bound_ms": probe_bounds[kname][0],
+            "bound_by": probe_bounds[kname][1],
+            "library_ms": probe_library_ms[kname],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

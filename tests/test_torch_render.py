@@ -57,7 +57,7 @@ def _cameras(sdf, w=48, h=36, focal=45.0, pose=None):
         pose[:3, 3] = sizes / 2.0 - np.array([0.0, 0.0, 1.5 * sizes[2]])
     jc = jr.PinholeCamera.create(pose, w, h, focal=focal)
     tc = interop.camera_from_numpy(np.asarray(jc.pose), jc.fx, jc.fy, jc.cx,
-                                   jc.cy, w, h)
+                                   jc.cy, w, h, device="cpu")
     return jc, tc
 
 

@@ -67,7 +67,7 @@ def _cameras(sdf, w=48, h=32, focal=45.0, back=1.5):
     pose[:3, 3] = sizes / 2.0 - np.array([0.0, 0.0, back * sizes[2]])
     jc = jr.PinholeCamera.create(pose, w, h, focal=focal)
     tc = interop.camera_from_numpy(np.asarray(jc.pose), jc.fx, jc.fy, jc.cx,
-                                   jc.cy, w, h)
+                                   jc.cy, w, h, device="cpu")
     return jc, tc
 
 

@@ -214,10 +214,11 @@ def test_interop_state_round_trip(fields, tables):
     sdf = interop.sdf_from_numpy(
         spec, np.asarray(js.distances), np.asarray(js.origin_transform),
         frame=js.frame, locked=js.locked, oob_value=js.oob_value,
-        minimum=np.asarray(js.minimum), maximum=np.asarray(js.maximum))
+        minimum=np.asarray(js.minimum), maximum=np.asarray(js.maximum),
+        device="cpu")
     assert sdf.locked and float(sdf.minimum) == float(js.minimum)
     assert torch.equal(sdf.distances, ts.distances)
-    table = interop.corner_table_from_numpy(np.asarray(jt.rows))
+    table = interop.corner_table_from_numpy(np.asarray(jt.rows), device="cpu")
     pts = torch.from_numpy(_points(js.spec.grid_sizes, 2, 500))
     a = tq.estimate_location_distance_fast(sdf, table, pts)
     b = tq.estimate_location_distance_fast(ts, tq.build_corner_table(ts),

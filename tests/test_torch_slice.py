@@ -77,7 +77,7 @@ def test_slice_matches_jax(early_exit):
     js = jedt.extract_sdf_from_occupancy(
         occ, JGridSpec.from_voxel_counts(res, shape), None)
     spec = GridSpec.from_voxel_counts(res, shape)
-    occ_map = OccupancyMap.create(spec, None, "world")
+    occ_map = OccupancyMap.create(spec, None, "world", device="cpu")
     occ_map = occ_map.replace(occupancy=torch.from_numpy(occ))
     ts = edt.extract_sdf_from_occupancy(occ_map.occupancy, occ_map.spec,
                                         occ_map.origin_transform)
@@ -92,7 +92,7 @@ def test_slice_matches_jax(early_exit):
     pose[:3, :3] = np.diag([1.0, -1.0, -1.0])  # looking down at the floor
     jc = jr.PinholeCamera.create(pose, 64, 48, focal=50.0)
     tc = interop.camera_from_numpy(np.asarray(jc.pose), jc.fx, jc.fy, jc.cx,
-                                   jc.cy, 64, 48)
+                                   jc.cy, 64, 48, device="cpu")
     kw = dict(num_steps=64, early_exit=early_exit, tail_chunks=1)
     ref = jr.render_depth(js, jc, corner_table=jt, **kw)
     got = tr.render_depth(ts, tc, corner_table=tt, **kw)
@@ -102,7 +102,7 @@ def test_slice_matches_jax(early_exit):
 
 @pytest.fixture(scope="module")
 def entries():
-    return __graft_entry__.entry(), tentry.entry()
+    return __graft_entry__.entry(), tentry.entry(device="cpu")
 
 
 def test_entry_forward_matches_jax(entries):
@@ -170,9 +170,9 @@ def test_cuda_kernel_matches_plain_version():
         cases.append(np.full((6, 40), fill, np.float32))
     for f in cases:
         x = torch.from_numpy(f).cuda()
-        before = edt_bestfirst.launches
+        before = edt_bestfirst.launches_staged
         got = edt_bestfirst.parabolic_envelope_last(x)
         torch.cuda.synchronize()
-        assert edt_bestfirst.launches == before + 1
+        assert edt_bestfirst.launches_staged == before + 1
         ref = edt_bestfirst.parabolic_envelope_last_plain(x)
         assert torch.equal(got, ref)

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from . import transforms
+from .device import default_device
 from .grid import GridSpec, get_index_values
 
 Tensor = torch.Tensor
@@ -87,7 +88,9 @@ class OccupancyMap(_MapBase):
     def create(spec: GridSpec, origin_transform=None, frame: str = "",
                default_occupancy: float = FREE,
                device=None) -> "OccupancyMap":
+        """On ``device``; None means the CUDA card."""
         spec.enforce_uniform_voxel_size()
+        device = default_device(device)
         return OccupancyMap(
             origin_transform=_default_transform(origin_transform,
                                                 device=device),
@@ -116,10 +119,12 @@ class SignedDistanceField(_MapBase):
                locked: bool = False, dtype=None,
                device=None) -> "SignedDistanceField":
         """``dtype`` selects the scalar type (float32 by default);
-        ``device`` defaults to the device of ``distances``."""
+        ``device`` defaults to the device of ``distances`` when that is a
+        tensor, else to the CUDA card."""
         spec.enforce_uniform_voxel_size()
         dtype = torch.float32 if dtype is None else dtype
-        values = torch.as_tensor(distances, device=device).to(dtype)
+        values = torch.as_tensor(
+            distances, device=default_device(device, like=distances)).to(dtype)
         if tuple(values.shape) != tuple(spec.shape):
             raise ValueError(
                 f"distances shape {tuple(values.shape)} != spec counts "

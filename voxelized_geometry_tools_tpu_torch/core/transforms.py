@@ -10,17 +10,21 @@ from __future__ import annotations
 import torch
 
 from .constants import constant
+from .device import default_device
 
 Tensor = torch.Tensor
 
 
 def identity_isometry(dtype=torch.float32, device=None) -> Tensor:
-    return torch.eye(4, dtype=dtype, device=device)
+    """On ``device``; None means the CUDA card."""
+    return torch.eye(4, dtype=dtype, device=default_device(device))
 
 
 def isometry_from_translation(translation, dtype=torch.float32,
                               device=None) -> Tensor:
-    """Isometry that is a pure translation."""
+    """Isometry that is a pure translation, on ``device`` (None: the
+    translation's device if it is a tensor, else the CUDA card)."""
+    device = default_device(device, like=translation)
     m = torch.eye(4, dtype=dtype, device=device)
     m[:3, 3] = torch.as_tensor(translation, dtype=dtype, device=device)
     return m

@@ -9,6 +9,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .core.device import default_device
 from .core.grid import GridSpec
 from .core.maps import SignedDistanceField
 from .ops import edt, render
@@ -23,14 +24,16 @@ def _build_scene(counts, resolution: float = 0.25, device=None):
     xs, ys, zs = np.meshgrid(*[np.arange(c) for c in counts], indexing="ij")
     filled = ((xs - cx) ** 2 + (ys - cy) ** 2 + (zs - cz) ** 2) <= r * r
     sdf = edt.extract_signed_distance_field(
-        torch.as_tensor(filled, device=device), spec, None, frame="bench")
+        torch.as_tensor(filled, device=default_device(device)), spec, None,
+        frame="bench")
     return spec, sdf
 
 
 def entry(device=None):
     """``(forward, (distances, pose))``: ``forward(distances, pose)``
     renders a 64x64 depth image of a 64^3 sphere SDF in 48 fixed march
-    steps; both inputs are differentiable."""
+    steps; both inputs are differentiable. Runs on ``device``; None means
+    the CUDA card."""
     spec, sdf = _build_scene((64, 64, 64), device=device)
     width, height = 64, 64
 

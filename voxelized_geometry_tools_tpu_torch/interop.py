@@ -10,6 +10,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from .core.device import default_device
 from .core.grid import GridSpec
 from .core.maps import SignedDistanceField
 from .ops.render import PinholeCamera
@@ -33,8 +34,9 @@ def sdf_from_numpy(spec: GridSpec, distances: np.ndarray,
                    device=None) -> SignedDistanceField:
     """A ``SignedDistanceField`` holding the given arrays as they are (same
     dtype). A locked field keeps the given ``minimum``/``maximum`` when
-    both are passed, else recomputes them."""
-    dist = torch.tensor(np.asarray(distances), device=device)
+    both are passed, else recomputes them. ``device``: None means the CUDA
+    card."""
+    dist = torch.tensor(np.asarray(distances), device=default_device(device))
     sdf = SignedDistanceField.create(
         spec, dist, origin_transform=np.asarray(origin_transform),
         frame=frame, oob_value=oob_value, dtype=dist.dtype)
@@ -52,16 +54,18 @@ def sdf_from_numpy(spec: GridSpec, distances: np.ndarray,
 
 def camera_from_numpy(pose: np.ndarray, fx, fy, cx, cy, width: int,
                       height: int, device=None) -> PinholeCamera:
-    """A ``PinholeCamera`` from a JAX camera's leaves and static fields."""
+    """A ``PinholeCamera`` from a JAX camera's leaves and static fields, on
+    ``device`` (None: the CUDA card)."""
     return PinholeCamera.create(np.asarray(pose, np.float32), width, height,
                                 fx=float(fx), fy=float(fy), cx=float(cx),
-                                cy=float(cy), device=device)
+                                cy=float(cy), device=default_device(device))
 
 
 def corner_table_from_numpy(rows: np.ndarray, device=None) -> CornerTable:
-    """A ``CornerTable`` from a JAX ``CornerTable.rows``."""
+    """A ``CornerTable`` from a JAX ``CornerTable.rows``, on ``device``
+    (None: the CUDA card)."""
     rows = np.asarray(rows)
     if rows.ndim != 2 or rows.shape[1] != 8:
         raise ValueError(f"corner table rows must be [N, 8], got "
                          f"{rows.shape}")
-    return CornerTable(rows=torch.tensor(rows, device=device))
+    return CornerTable(rows=torch.tensor(rows, device=default_device(device)))

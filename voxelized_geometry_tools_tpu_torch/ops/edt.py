@@ -28,6 +28,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..core.device import default_device
 from ..core.grid import GridSpec
 from ..core.maps import SignedDistanceField
 from ..kernels import edt_bestfirst, edt_envelope, edt_windowed
@@ -341,13 +342,15 @@ def extract_signed_distance_field(
         dtype=torch.float32,
         streaming: Optional[bool] = None) -> SignedDistanceField:
     """Full SDF-generation entry point over a filled-voxel mask; returns the
-    field *locked* with cached min/max, on the mask's device.
+    field *locked* with cached min/max, on the mask's device (a mask given
+    as host data goes to the CUDA card).
 
     ``streaming`` selects the slab-streamed pipeline (bit-identical, with
     slab-bounded transients: how 1024^3 fits one card); ``None`` takes it
     for grids of 640^3 voxels and more, as in the JAX package."""
     spec.enforce_uniform_voxel_size()
-    mask = torch.as_tensor(is_filled).bool()
+    mask = torch.as_tensor(is_filled,
+                           device=default_device(like=is_filled)).bool()
     if streaming is None:
         streaming = spec.num_total >= _STREAMING_AUTO_VOXELS
     if add_virtual_border:
@@ -375,9 +378,11 @@ def extract_sdf_from_occupancy(
         block: int = 512,
         dtype=torch.float32,
         streaming: Optional[bool] = None) -> SignedDistanceField:
-    """SDF from an occupancy channel (float32 or float64 ``dtype``)."""
-    mask = filled_mask_from_occupancy(torch.as_tensor(occupancy),
-                                      unknown_is_filled)
+    """SDF from an occupancy channel (float32 or float64 ``dtype``), on
+    its device (host data goes to the CUDA card)."""
+    occupancy = torch.as_tensor(occupancy,
+                                device=default_device(like=occupancy))
+    mask = filled_mask_from_occupancy(occupancy, unknown_is_filled)
     return extract_signed_distance_field(
         mask, spec, origin_transform, frame=frame, oob_value=oob_value,
         add_virtual_border=add_virtual_border, block=block, dtype=dtype,

@@ -38,6 +38,7 @@ import torch
 
 from ..core import transforms
 from ..core.constants import constant
+from ..core.device import default_device
 from ..core.maps import SignedDistanceField
 from . import sdf_query
 
@@ -78,6 +79,8 @@ class PinholeCamera:
             cx = (width - 1) / 2.0
         if cy is None:
             cy = (height - 1) / 2.0
+        # None: a tensor pose keeps its device, a host pose goes to the card.
+        device = default_device(device, like=pose)
         if isinstance(pose, torch.Tensor):
             pose = pose.to(dtype=torch.float32, device=device)
         else:
