@@ -11,11 +11,11 @@ other EDT backend through the same 512^3 EDT, the best-first kernel's
 global variant through an EDT whose axes are too long for the staged one,
 the large-grid path (a 1024^3 signed EDT that takes the slab-streamed
 pipeline on its own, and a render from it without a corner table), the
-primitive-rate probes' entry
-point (``kernels.probes.main``, the counterpart of
-benchmarks/inkernel_microbench.py) with each probe held against its plain
-version, and bench.py's shipped early-exit schedule (cone prepass, block-
-sorted tail, sparse final sample) on the sphere and clutter scenes. Prints
+primitive-rate probes' entry point (``kernels.probes.main``, the
+counterpart of benchmarks/inkernel_microbench.py, with the card's launch
+floor) with each probe held against its plain version, and bench.py's
+shipped early-exit schedule (cone prepass, block-sorted tail, sparse final
+sample) on the sphere and clutter scenes. Prints
 human-readable lines, then a JSON line describing each kernel, then
 ``{"ok": true, "device": ...}`` as the last line. Any failure raises, and
 the script exits non-zero; without a CUDA card it exits non-zero before
@@ -106,6 +106,13 @@ DEPTH_ATOL = 1e-4
 MAX_HIT_FLIPS = 0.005
 GRAZER_BAND = 0.08
 GRAD_RTOL, GRAD_ATOL = 1e-3, 1e-4
+# The device-memory gather on a non-integer table against a float64 sum of
+# the same rows, relative to the rows' absolute sum: its float32 order of
+# adds reads about 1e-8 there on an H100, while one row of the 20,000
+# dropped or doubled moves it by about 5e-5.
+DMA_REL_TOL = 1e-6
+# Calls of a probe wrapper whose host time is averaged.
+HOST_REPS = 50
 
 
 def log(*args):
@@ -820,9 +827,13 @@ def phase_gradients():
 
 def probe_cases(full):
     """(name, kernel call, plain call) for each probe: the TPU seeds and
-    others, a row count that is not a power of two, dma depths 2/8/16,
-    march batches 64/256, one replica and ``full``; integer tables, so
-    every sum is exact and kernel and plain must agree bit for bit."""
+    others, row counts that are not powers of two, the scatter's 8192 x 8
+    and 2048 x 128 accumulators over a cluster with 1 and 1,001 iterations
+    (fewer than the cluster's threads, and ragged against them) besides
+    the timed counts, dma depths 1/2/8/16 and n_iters == depth (zeros) on
+    the 2^20-row and a 1,000,003-row table, march batches 64/256, one
+    replica and ``full``; integer tables, so every sum is exact and kernel
+    and plain must agree bit for bit."""
     pr = probes
     dev = torch.device("cuda")
     cases = []
@@ -837,26 +848,30 @@ def probe_cases(full):
                           functools.partial(pr.vmem_gather_plain, table,
                                             *args)))
     for n_rows, width, seed in ((2048, pr.WIDTH, pr.SCATTER_SEED),
-                                (4096, pr.WIDTH, 99), (1000, 37, 5)):
+                                (4096, pr.WIDTH, 99), (8192, pr.WIDTH, 3),
+                                (1000, 37, 5), (2048, 128, 11)):
         mask = pr.integer_table(1, width, dev, seed=width)
-        for reps, iters in ((1, pr.SCATTER_ITERS), (full, 20_000)):
+        for reps, iters in ((1, pr.SCATTER_ITERS), (full, 20_000), (1, 1),
+                            (full, 1), (1, 1001), (full, 1001)):
             args = (iters, n_rows, reps, seed)
             cases.append((f"vmem_scatter({n_rows}x{width}, seed {seed}, "
-                          f"{reps} replicas)",
+                          f"{iters} iterations, {reps} replicas)",
                           functools.partial(pr.vmem_scatter, mask, *args),
                           functools.partial(pr.vmem_scatter_plain, mask,
                                             *args)))
     big = pr.integer_table(pr.DMA_ROWS, pr.DMA_WIDTH, dev, seed=2)
     for rows in (pr.DMA_ROWS, 1_000_003):
         table = big[:rows]
-        for depth in pr.DMA_DEPTHS:
+        for depth in (1,) + pr.DMA_DEPTHS:
             for reps in (1, full):
-                args = (pr.DMA_ITERS, depth, reps, pr.DMA_SEED + depth)
-                cases.append((f"hbm_dma({rows}x{pr.DMA_WIDTH}, depth "
-                              f"{depth}, {reps} replicas)",
-                              functools.partial(pr.hbm_dma, table, *args),
-                              functools.partial(pr.hbm_dma_plain, table,
-                                                *args)))
+                for iters in (pr.DMA_ITERS, depth):
+                    args = (iters, depth, reps, pr.DMA_SEED + depth)
+                    cases.append((f"hbm_dma({rows}x{pr.DMA_WIDTH}, depth "
+                                  f"{depth}, {iters} iterations, {reps} "
+                                  "replicas)",
+                                  functools.partial(pr.hbm_dma, table, *args),
+                                  functools.partial(pr.hbm_dma_plain, table,
+                                                    *args)))
     for n_rows in (pr.TABLE_ROWS, 3001):
         table = pr.integer_table(n_rows, pr.WIDTH, dev, seed=n_rows + 1)
         for batch in pr.MARCH_BATCHES:
@@ -869,6 +884,73 @@ def probe_cases(full):
                               functools.partial(pr.vmem_batch_march_plain,
                                                 *args)))
     return cases
+
+
+def probe_nonintegers(full):
+    """Non-integer inputs: the scatter equals its plain version bit for bit
+    (tolerance 0: every add into a cell adds the same mask value, so no
+    order of the remote reductions changes a partial sum), and so it does
+    on zeros of both signs, infinities, a subnormal, values that overflow
+    and NaN, against the plain version on the CPU (sequential adds; the
+    remote reductions keep subnormals, the card's index_add_ flushes
+    them); two launches of the device-memory gather give the same bits (its
+    reduction order is fixed by its plan) and agree with a float64 sum of
+    the same rows within DMA_REL_TOL of their absolute sum."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    mask = torch.rand(1, probes.WIDTH, generator=gen, device="cuda") - 0.5
+    special = torch.tensor([[0.0, -0.0, float("inf"), -float("inf"), 1e-45,
+                             3e38, 0.1, float("nan")]])
+    cases = ((mask, probes.SCATTER_ITERS, 4096, 1, mask),
+             (mask, probes.SCATTER_ITERS, 8192, full, mask),
+             (special.cuda(), 50_000, 100, 1, special))
+    for m, n_iters, n_rows, reps, m_ref in cases:
+        got = probes.vmem_scatter(m, n_iters, n_rows, reps).to(m_ref.device)
+        ref = probes.vmem_scatter_plain(m_ref, n_iters, n_rows, reps)
+        same = ((got.view(torch.int32) == ref.view(torch.int32))
+                | (torch.isnan(got) & torch.isnan(ref)))
+        if not bool(same.all()):
+            raise AssertionError(
+                f"vmem_scatter on a non-integer mask != plain ({n_rows} rows, "
+                f"{reps} replicas) at {int((~same).sum())} entries: max abs "
+                f"err {max_abs_err(got, ref)}")
+    table = torch.randn(probes.DMA_ROWS, probes.DMA_WIDTH, generator=gen,
+                        device="cuda")
+    worst = 0.0
+    for reps in (1, full):
+        args = (probes.DMA_ITERS, 8, reps)
+        first, second = probes.hbm_dma(table, *args), probes.hbm_dma(table,
+                                                                     *args)
+        if not torch.equal(first, second):
+            raise AssertionError(f"hbm_dma on a non-integer table: two "
+                                 f"launches differ ({reps} replicas)")
+        idx = probes._replica_indices(probes.DMA_SEED, reps,
+                                      probes.DMA_ITERS - 8, probes.DMA_ROWS,
+                                      "cuda")
+        rows = table[idx].double()
+        err = (first.double() - rows.sum(dim=1)).abs() / rows.abs().sum(dim=1)
+        worst = max(worst, float(err.max()))
+        del rows
+    if worst > DMA_REL_TOL:
+        raise AssertionError(f"hbm_dma on a non-integer table: {worst} of "
+                             f"the absolute sum from a float64 sum, above "
+                             f"{DMA_REL_TOL}")
+    log(f"probes non-integer: scatter == plain (bitwise, tolerance 0, on "
+        f"special values too); hbm_dma launches identical, within "
+        f"{worst:.3e} of the absolute sum from a float64 sum (limit "
+        f"{DMA_REL_TOL})")
+
+
+def host_us(fn, reps):
+    """Mean microseconds of host time per call of ``fn`` (after one warm-up
+    call), the card not waited for."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return host / reps * 1e6
 
 
 def phase_probes():
@@ -901,6 +983,12 @@ def phase_probes():
         counted += 1
     log(f"probes kernel vs plain: {counted} cases bitwise equal "
         f"(replicas 1 and {full})")
+    probe_nonintegers(full)
+    floor_ms = rates["launch_floor_ms"]
+    log(f"launch floor: the empty kernel takes {floor_ms:.6f} ms per launch "
+        "(timed as the probes are, queued behind a spin)")
+    log(f"fixed cost of a launch besides its rows (ms, one replica): "
+        f"{json.dumps(rates['fixed_ms'])}")
 
     dev = torch.device("cuda")
     table = probes.integer_table(probes.TABLE_ROWS, probes.WIDTH, dev)
@@ -930,16 +1018,21 @@ def phase_probes():
     src = mask.expand(probes.SCATTER_ITERS, probes.WIDTH).contiguous()
     acc = torch.zeros(4096, probes.WIDTH, device=dev)
     didx = [rows_of(seed, probes.DMA_ITERS, probes.DMA_ROWS) for seed in
-            probes.fresh_seeds(probes.DMA_SEED, 12, 1, probes.DMA_ITERS)]
+            probes.fresh_seeds(probes.DMA_SEED, 24, 1, probes.DMA_ITERS)]
     dma_rows = iter(didx)
-    library_ms = {
-        "vmem_gather": cuda_ms(lambda: torch.index_select(table, 0, gidx),
-                               10),
-        "vmem_scatter": cuda_ms(lambda: acc.index_add_(0, sidx, src), 10),
-        "hbm_dma": cuda_ms(lambda: torch.index_select(big, 0,
-                                                      next(dma_rows)), 10),
-        "vmem_batch_march": None,
+    library_calls = {
+        "vmem_gather": lambda: torch.index_select(table, 0, gidx),
+        "vmem_scatter": lambda: acc.index_add_(0, sidx, src),
+        "hbm_dma": lambda: torch.index_select(big, 0, next(dma_rows)),
     }
+    # Timed as the probes are (queued_ms) and, as earlier runs timed them,
+    # paced by the host (cuda_ms).
+    library_ms = {name: probes.queued_ms(fn, 10)
+                  for name, fn in library_calls.items()}
+    library_ms["vmem_batch_march"] = None
+    for name, fn in library_calls.items():
+        log(f"library call of {name}: {library_ms[name]:.6f} ms queued, "
+            f"{cuda_ms(fn, 10):.6f} ms paced by the host")
     # Bytes (each input read once, each output written once; the rows the
     # device-memory probe reads, not its whole table) and float32 operations
     # of one replica at the timed shape.
@@ -954,9 +1047,27 @@ def phase_probes():
                              probes.MARCH_STEPS * 256 * (2 * w + 2)),
     }
     bounds = {name: bound_of(b, o) for name, (b, o) in work.items()}
+    # Each probe at one replica as main() times it (queued), paced by the
+    # host (cuda_ms, as earlier versions timed it), and its wrapper's host
+    # time per call.
+    seeds = probes.fresh_seeds(probes.DMA_SEED + 7, 2 * HOST_REPS, 1,
+                               probes.DMA_ITERS)
+    kernel_calls = {
+        "vmem_gather": lambda: probes.vmem_gather(table, probes.GATHER_ITERS),
+        "vmem_scatter": lambda: probes.vmem_scatter(
+            mask, probes.SCATTER_ITERS, 4096),
+        "hbm_dma": lambda: probes.hbm_dma(big, probes.DMA_ITERS, 8, 1,
+                                          next(seeds)),
+        "vmem_batch_march": lambda: probes.vmem_batch_march(
+            table, t0, probes.MARCH_STEPS),
+    }
     kernel_ms = {}
     for name, (_, key, rows) in PROBES.items():
         kernel_ms[name] = rates[key] * rows / 1e6
+        fn = kernel_calls[name]
+        log(f"probe {name} at one replica: {kernel_ms[name]:.6f} ms queued, "
+            f"{cuda_ms(fn, 10):.6f} ms paced by the host, "
+            f"{host_us(fn, HOST_REPS):.2f} us of host time a call")
         lib = library_ms[name]
         log(f"probe {name}: {rates[key]:.4f} ns/row with 1 replica "
             f"({kernel_ms[name]:.4f} ms), {rates['full_card'][key]:.4f} "

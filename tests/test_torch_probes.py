@@ -192,8 +192,9 @@ def test_dma_shape_rules():
 @pytest.mark.cuda
 def test_cuda_probe_kernels_match_plain_versions():
     """On a CUDA card: each kernel equals its plain version bit for bit,
-    for one replica and one per SM, and a table beyond a block's shared
-    memory raises."""
+    for one replica and one per SM (the scatter also at the TPU's 8192 x 8
+    accumulator, over a cluster), a table beyond a block's shared memory
+    raises, and so does an accumulator beyond a cluster's."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     dev = torch.device("cuda")
@@ -208,6 +209,8 @@ def test_cuda_probe_kernels_match_plain_versions():
              probes.vmem_gather_plain(table, 5000, reps)),
             (probes.vmem_scatter(mask, 5000, 3001, reps),
              probes.vmem_scatter_plain(mask, 5000, 3001, reps)),
+            (probes.vmem_scatter(mask, 5000, 8192, reps),
+             probes.vmem_scatter_plain(mask, 5000, 8192, reps)),
             (probes.hbm_dma(big, 5000, 8, reps),
              probes.hbm_dma_plain(big, 5000, 8, reps)),
             (probes.vmem_batch_march(table, t0, 16, reps),
@@ -218,6 +221,8 @@ def test_cuda_probe_kernels_match_plain_versions():
             assert torch.equal(got, ref)
     with pytest.raises(ValueError, match="shared memory"):
         probes.vmem_gather(probes.integer_table(4096, 128, dev), 10)
+    with pytest.raises(ValueError, match="does not fit a cluster"):
+        probes.vmem_scatter(probes.integer_table(1, 128, dev), 10, 8192)
 
 
 def test_fresh_seeds_are_spaced_and_checked():

@@ -2,44 +2,63 @@
 // primitives a fused render march or carve kernel would be built from.
 //
 // Replaces the four TPU probe kernels of benchmarks/inkernel_microbench.py:
-//   vmem_gather_kernel       <- _vmem_gather_kernel      (vmem_gather_bench)
-//   vmem_scatter_kernel      <- _vmem_scatter_kernel     (vmem_scatter_bench)
-//   hbm_dma_kernel<DEPTH>    <- _hbm_dma_kernel          (hbm_dma_bench)
-//   vmem_batch_march_kernel  <- _vmem_batch_march_kernel (vmem_batch_march_bench)
-// Each computes what its TPU kernel computes; block b is replica b, which
-// runs the probe with seed + b into row b of the output (replica 0 is the
-// TPU kernel's result).
+//   vmem_gather_kernel          <- _vmem_gather_kernel (vmem_gather_bench)
+//   vmem_scatter_cluster_kernel <- _vmem_scatter_kernel (vmem_scatter_bench)
+//   hbm_dma_kernel<DEPTH>       <- _hbm_dma_kernel (hbm_dma_bench)
+//   vmem_batch_march_kernel     <- _vmem_batch_march_kernel
+//                                  (vmem_batch_march_bench)
+// Each computes what its TPU kernel computes; replica r runs the probe with
+// seed + r into row r of the output (replica 0 is the TPU kernel's result).
 //
 // Row indices come from the TPU kernels' LCG: state = state * 1664525 +
 // 1013904223 in wrapping 32-bit arithmetic, row = abs(int32(state)) %
 // n_rows. abs(INT_MIN) would be negative on the TPU; the wrapper rejects a
-// sequence that reaches it, so the unsigned form here is exact.
+// sequence that reaches it, so the unsigned form here is exact. The LCG is
+// affine, so k steps are one map s -> a_k s + c_k (mod 2^32): the wrapper
+// computes each thread's or warp's first state map and the stride map, and
+// a thread jumps to its own share of the sequence.
 //
 // What bounds each on the H100, and the design:
-// * gather / scatter / march keep the TPU's VMEM operand (table or
-//   accumulator) in dynamic shared memory; above 48 KiB the kernel opts in
-//   with cudaFuncSetAttribute, and the wrapper refuses sizes beyond the
-//   device's opt-in limit (227 KiB on the H100). One thread owns one
-//   column and computes the uniform LCG itself, so a row access is one
-//   conflict-free shared-memory wavefront; the rate is bounded by that
-//   access's latency chain and the index arithmetic (a 32-bit remainder).
-// * the march probe gives each ray its own thread, which jumps ahead in the
-//   LCG to its own states (ray j of step k reads state k * batch + j + 1),
-//   so the batch's gathers run in parallel, as a fused march would.
-// * the HBM probe is a global-memory row gather through a DEPTH-stage
-//   cp.async ring: one warp moves a row in 16-byte pieces (a 512-byte row
-//   in one instruction), and cp.async.wait_group retires one stage per
-//   step. One warp's rate stops growing past depth 8 and is the same from
-//   L2 as from DRAM, so the card's bandwidth takes several warps per SM
-//   (replicas a multiple of the SM count).
+// * gather / march keep the TPU's VMEM table in one block's dynamic shared
+//   memory (opt-in above 48 KiB, refused past the device's 227 KiB); one
+//   thread owns one column (gather) or one ray (march), so a row access is
+//   one conflict-free wavefront, bounded by its latency chain and the
+//   index arithmetic.
+// * scatter spreads one replica over a thread block cluster of 8 CTAs (the
+//   portable size; probes.scatter_plan): each CTA owns a contiguous slice
+//   of the accumulator's rows in its shared memory. Thread t of the
+//   cluster takes column t % width of iterations t / width, t / width + P,
+//   ... (P = the cluster's threads / width), and adds that column of the
+//   mask into the owning CTA's slice with one remote float reduction into
+//   distributed shared memory (mapa + red.shared::cluster.add.f32), so a
+//   warp's reduction covers whole rows. Slices are zeroed and written out
+//   in 16-byte stores, a cluster barrier on either side of the adds. Every
+//   add into a cell adds the same mask value, so every order of the adds
+//   gives the same partial sums: the sequential adds' bits. Bound: the
+//   remote reductions (800,000 at the probe's shape) and the cluster
+//   launch with its two barriers.
+// * the HBM probe is a device-memory row gather; one warp is latency-bound
+//   (~109 ns a row on an H100), so one replica's sequence is split into
+//   contiguous shares over enough warps to fill the card, each keeping
+//   DEPTH rows in flight through a cp.async ring (a lane moves 16 bytes).
+//   Warps sum their rows in order, CTAs sum their warps in order into a
+//   scratch row, and the last CTA of a replica to arrive sums the CTAs in
+//   order (threadfence + arrival counter): the same bits on every run.
+//   Bound: the rows' bytes at the HBM rate.
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr uint32_t kLcgA = 1664525u;
 constexpr uint32_t kLcgC = 1013904223u;
+constexpr int kScatterThreads = 1024;
+constexpr int kScatterCluster = 8;
+constexpr int kDmaWarps = 16;
 
 __device__ __forceinline__ uint32_t lcg_next(uint32_t s) {
   return s * kLcgA + kLcgC;
@@ -51,11 +70,20 @@ __device__ __forceinline__ uint32_t lcg_row(uint32_t s, uint32_t n_rows) {
   return a % n_rows;
 }
 
+// floor(a / d) for a < 2^31 by the wrapper's magic pair (m, shift) of d
+// (probes.magic_divisor: m = ceil(2^shift / d), exact below 2^31).
+__device__ __forceinline__ uint32_t magic_div(uint32_t a, uint32_t m,
+                                              uint32_t shift) {
+  return static_cast<uint32_t>((static_cast<uint64_t>(a) * m) >> shift);
+}
+
 __device__ __forceinline__ void copy_to_shared(float* dst,
                                                const float* __restrict__ src,
                                                int count) {
   for (int i = threadIdx.x; i < count; i += blockDim.x) dst[i] = src[i];
 }
+
+__global__ void empty_kernel() {}
 
 __global__ void vmem_gather_kernel(const float* __restrict__ table,
                                    float* __restrict__ out, uint32_t n_rows,
@@ -75,23 +103,108 @@ __global__ void vmem_gather_kernel(const float* __restrict__ table,
   out[static_cast<size_t>(blockIdx.x) * width + w] = acc;
 }
 
-__global__ void vmem_scatter_kernel(const float* __restrict__ mask,
-                                    float* __restrict__ out, uint32_t n_rows,
-                                    int width, long long n_iters,
-                                    uint32_t seed) {
-  extern __shared__ float acc[];
-  const int w = threadIdx.x;
-  if (w >= width) return;
-  // Each thread touches only its own column: no barrier is needed.
-  for (uint32_t r = 0; r < n_rows; ++r) acc[r * width + w] = 0.0f;
-  const float m = mask[w];
-  uint32_t s = seed + blockIdx.x;
-  for (long long i = 0; i < n_iters; ++i) {
-    s = lcg_next(s);
-    acc[lcg_row(s, n_rows) * width + w] += m;
+struct ScatterArgs {
+  long long n_iters;
+  uint32_t n_rows, rows_m, rows_shift;       // n_rows and its magic pair
+  uint32_t rows_per_cta, slice_m, slice_shift;
+  uint32_t slice_vec4;                       // float4s of a CTA's slice
+  uint32_t rows_per_pass;                    // P = cluster threads / width
+  uint32_t stride_a, stride_c;               // the LCG map of P steps
+  uint32_t seed;
+  uint32_t width;
+};
+
+__device__ __forceinline__ uint32_t map_to_rank(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ void red_cluster_add(uint32_t addr, float v) {
+  asm volatile("red.shared::cluster.add.f32 [%0], %1;\n"
+               :: "r"(addr), "f"(v) : "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// One cluster of kScatterCluster CTAs per replica (clusters along x). CTA
+// k owns the accumulator's rows [k rows_per_cta, (k + 1) rows_per_cta) as
+// a float slice in its shared memory. Thread t of the cluster's threads
+// takes column t % width of iterations t / width + j P (starts[t / width]
+// maps the seed to state t / width + 1, the stride map steps P states) and
+// adds mask[column] into the owner's slice with a remote reduction.
+__global__ void __launch_bounds__(kScatterThreads)
+vmem_scatter_cluster_kernel(const float* __restrict__ mask,
+                            float* __restrict__ out,
+                            const uint2* __restrict__ starts,
+                            ScatterArgs args) {
+  extern __shared__ float4 slice[];
+  const uint32_t rank = cg::this_cluster().block_rank();
+  const uint32_t replica = blockIdx.x / kScatterCluster;
+  for (uint32_t i = threadIdx.x; i < args.slice_vec4; i += blockDim.x) {
+    slice[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
-  float* dst = out + static_cast<size_t>(blockIdx.x) * n_rows * width;
-  for (uint32_t r = 0; r < n_rows; ++r) dst[r * width + w] = acc[r * width + w];
+  // Every slice is zeroed before any remote add lands; the wait comes
+  // after the thread's set-up, which hides part of the barrier.
+  cluster_arrive();
+
+  const uint32_t width = args.width;
+  const uint32_t t = rank * blockDim.x + threadIdx.x;
+  const uint32_t first = t / width;
+  const uint32_t column = t - first * width;
+  const bool active = first < args.rows_per_pass;
+  float m = 0.0f;
+  uint32_t s = 0u;
+  if (active) {
+    m = __ldg(mask + column);
+    const uint2 st = starts[first];
+    s = st.x * (args.seed + replica) + st.y;
+  }
+  const uint32_t base =
+      static_cast<uint32_t>(__cvta_generic_to_shared(slice)) + column * 4u;
+  const uint32_t row_bytes = width * 4u;
+  cluster_wait();
+
+  if (active) {
+    for (long long i = first; i < args.n_iters; i += args.rows_per_pass) {
+      const uint32_t a = (s & 0x80000000u) ? 0u - s : s;
+      const uint32_t row =
+          a - magic_div(a, args.rows_m, args.rows_shift) * args.n_rows;
+      const uint32_t owner = magic_div(row, args.slice_m, args.slice_shift);
+      const uint32_t local = row - owner * args.rows_per_cta;
+      red_cluster_add(map_to_rank(base + local * row_bytes, owner), m);
+      s = args.stride_a * s + args.stride_c;
+    }
+  }
+  // Every remote add landed; no CTA touches another's memory after this.
+  cluster_arrive();
+  cluster_wait();
+
+  const long long lo = static_cast<long long>(rank) * args.rows_per_cta;
+  const long long hi = lo + args.rows_per_cta < args.n_rows
+                           ? lo + args.rows_per_cta : args.n_rows;
+  if (hi <= lo) return;
+  const uint32_t count = static_cast<uint32_t>(hi - lo) * width;
+  float* dst = out + (static_cast<long long>(replica) * args.n_rows + lo) *
+                         width;
+  if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0 && count % 4 == 0) {
+    float4* dst4 = reinterpret_cast<float4*>(dst);
+    for (uint32_t i = threadIdx.x; i < count / 4; i += blockDim.x) {
+      dst4[i] = slice[i];
+    }
+  } else {
+    const float* acc = reinterpret_cast<const float*>(slice);
+    for (uint32_t i = threadIdx.x; i < count; i += blockDim.x) {
+      dst[i] = acc[i];
+    }
+  }
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -109,47 +222,107 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// One warp per block. Sums the first n_iters - DEPTH rows of the sequence;
-// the last DEPTH copies are started and not summed, as on the TPU (they
-// are waited for before the block exits, since its shared memory goes).
+__device__ __forceinline__ void add4(float4& a, const float4& b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
+
+// kDmaWarps warps per CTA, `ctas` CTAs per replica. Warp w of CTA c reads
+// its share of the replica's sequence, plan[c * kDmaWarps + w] = (a, c,
+// rows, summed): state a * seed + c is its first iteration's, it reads
+// `rows` rows and sums the first `summed` (only iterations below n_iters -
+// DEPTH are summed, as on the TPU; every row is still read). Partials go
+// to partials[replica][c][width]; arrivals[replica] counts the CTAs done
+// and is back at 0 when the kernel ends.
 template <int DEPTH>
-__global__ void __launch_bounds__(32)
+__global__ void __launch_bounds__(kDmaWarps * 32)
 hbm_dma_kernel(const float* __restrict__ table, float* __restrict__ out,
-               uint32_t n_rows, int width, long long n_iters, uint32_t seed) {
-  extern __shared__ float4 ring[];  // [DEPTH][width / 4]
-  const int lane = threadIdx.x;
+               float* __restrict__ partials, unsigned* __restrict__ arrivals,
+               const uint4* __restrict__ plan, uint32_t n_rows, int width,
+               int ctas, uint32_t seed) {
+  extern __shared__ float4 ring[];  // [kDmaWarps][DEPTH][width / 4]
+  __shared__ bool last;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   const int pieces = width / 4;
   const bool active = lane < pieces;
-  uint32_t s = seed + blockIdx.x;
+  const int replica = blockIdx.x / ctas;
+  const int cta = blockIdx.x - replica * ctas;
+  const uint4 share = plan[cta * kDmaWarps + warp];
+  uint32_t s = share.x * (seed + replica) + share.y;
+  float4* my = ring + warp * DEPTH * pieces;
   auto start = [&](int slot) {
-    s = lcg_next(s);
     const uint32_t row = lcg_row(s, n_rows);
+    s = lcg_next(s);
     if (active) {
-      cp_async16(ring + slot * pieces + lane,
+      cp_async16(my + slot * pieces + lane,
                  reinterpret_cast<const float4*>(
                      table + static_cast<size_t>(row) * width) + lane);
     }
-    cp_async_commit();
   };
-  for (int slot = 0; slot < DEPTH; ++slot) start(slot);
+  // One commit group per step, empty past the share's end, so the oldest
+  // row has always landed after wait_group DEPTH - 1.
+#pragma unroll
+  for (int k = 0; k < DEPTH; ++k) {
+    if (static_cast<uint32_t>(k) < share.z) start(k);
+    cp_async_commit();
+  }
   float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  for (long long i = 0; i < n_iters - DEPTH; ++i) {
-    const int slot = static_cast<int>(i % DEPTH);
-    cp_async_wait<DEPTH - 1>();  // the oldest stage has landed
-    if (active) {
-      const float4 v = ring[slot * pieces + lane];
-      acc.x += v.x;
-      acc.y += v.y;
-      acc.z += v.z;
-      acc.w += v.w;
-    }
-    start(slot);
+  int slot = 0;
+  for (uint32_t i = 0; i < share.z; ++i) {
+    cp_async_wait<DEPTH - 1>();
+    if (active && i < share.w) add4(acc, my[slot * pieces + lane]);
+    if (i + DEPTH < share.z) start(slot);
+    cp_async_commit();
+    slot = slot + 1 == DEPTH ? 0 : slot + 1;
   }
   cp_async_wait<0>();
-  if (active) {
-    reinterpret_cast<float4*>(out + static_cast<size_t>(blockIdx.x) * width)
-        [lane] = acc;
+
+  // The CTA's warps, summed in order.
+  if (active) my[lane] = acc;
+  __syncthreads();
+  float4* part4 = reinterpret_cast<float4*>(partials);
+  if (threadIdx.x < pieces) {
+    float4 v = ring[threadIdx.x];
+#pragma unroll
+    for (int w = 1; w < kDmaWarps; ++w) {
+      add4(v, ring[w * DEPTH * pieces + threadIdx.x]);
+    }
+    part4[static_cast<size_t>(blockIdx.x) * pieces + threadIdx.x] = v;
+    __threadfence();
   }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(arrivals + replica, 1u) ==
+           static_cast<unsigned>(ctas - 1);
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // The last CTA: warp w sums CTAs w, w + kDmaWarps, ... in order, then
+  // the warps' sums are added in order.
+  const float4* rep = part4 + static_cast<size_t>(replica) * ctas * pieces;
+  if (active) {
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll 8
+    for (int c = warp; c < ctas; c += kDmaWarps) {
+      add4(v, __ldcg(rep + static_cast<size_t>(c) * pieces + lane));
+    }
+    ring[warp * pieces + lane] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < pieces) {
+    float4 v = ring[threadIdx.x];
+#pragma unroll
+    for (int w = 1; w < kDmaWarps; ++w) {
+      add4(v, ring[w * pieces + threadIdx.x]);
+    }
+    reinterpret_cast<float4*>(out)[static_cast<size_t>(replica) * pieces +
+                                   threadIdx.x] = v;
+  }
+  if (threadIdx.x == 0) arrivals[replica] = 0u;
 }
 
 // One thread per ray (blockDim == batch).
@@ -193,13 +366,40 @@ cudaError_t opt_in_shared(const void* kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// The launch configuration of `replicas` clusters of kScatterCluster CTAs
+// with `smem` bytes each, the kernel's shared memory opted into.
+cudaError_t scatter_config(size_t smem, int replicas, cudaStream_t stream,
+                           cudaLaunchConfig_t* config,
+                           cudaLaunchAttribute* attr) {
+  cudaError_t err = opt_in_shared(
+      reinterpret_cast<const void*>(vmem_scatter_cluster_kernel), smem);
+  if (err != cudaSuccess) return err;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = kScatterCluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  *config = cudaLaunchConfig_t{};
+  config->gridDim = dim3(replicas * kScatterCluster);
+  config->blockDim = dim3(kScatterThreads);
+  config->dynamicSmemBytes = smem;
+  config->stream = stream;
+  config->attrs = attr;
+  config->numAttrs = 1;
+  return cudaSuccess;
+}
+
 template <int DEPTH>
-cudaError_t launch_dma(const float* table, float* out, uint32_t n_rows,
-                       int width, long long n_iters, uint32_t seed,
-                       int replicas, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(DEPTH) * width * sizeof(float);
-  hbm_dma_kernel<DEPTH><<<replicas, 32, smem, stream>>>(
-      table, out, n_rows, width, n_iters, seed);
+cudaError_t launch_dma(const float* table, float* out, float* partials,
+                       unsigned* arrivals, const uint4* plan, uint32_t n_rows,
+                       int width, int ctas, uint32_t seed, int replicas,
+                       cudaStream_t stream) {
+  const size_t smem =
+      static_cast<size_t>(kDmaWarps) * DEPTH * width * sizeof(float);
+  cudaError_t err = opt_in_shared(
+      reinterpret_cast<const void*>(hbm_dma_kernel<DEPTH>), smem);
+  if (err != cudaSuccess) return err;
+  hbm_dma_kernel<DEPTH><<<replicas * ctas, kDmaWarps * 32, smem, stream>>>(
+      table, out, partials, arrivals, plan, n_rows, width, ctas, seed);
   return cudaGetLastError();
 }
 
@@ -218,10 +418,43 @@ int probes_max_shared_bytes(int device) {
   return v;
 }
 
-// Every launcher: table/mask/t0 inputs and the output contiguous float32 on
-// `device`; launches `replicas` blocks on `stream` without synchronizing
-// and returns the cudaError_t (0 on success). The wrapper checks shapes and
-// shared-memory sizes before calling.
+// The scatter kernel's threads and CTAs per cluster and the DMA kernel's
+// warps per CTA, which the wrapper's plans must use.
+int probes_scatter_threads() { return kScatterThreads; }
+int probes_scatter_cluster() { return kScatterCluster; }
+int probes_dma_warps() { return kDmaWarps; }
+
+// Clusters of the scatter kernel with `smem` bytes of shared memory a CTA
+// that the device can hold at once (cudaOccupancyMaxActiveClusters); -1 on
+// error.
+int probe_vmem_scatter_max_clusters(long long smem, int device) {
+  if (cudaSetDevice(device) != cudaSuccess) return -1;
+  cudaLaunchConfig_t config;
+  cudaLaunchAttribute attr;
+  if (scatter_config(static_cast<size_t>(smem), 1, nullptr, &config,
+                     &attr) != cudaSuccess) {
+    return -1;
+  }
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(
+          &n, reinterpret_cast<const void*>(vmem_scatter_cluster_kernel),
+          &config) != cudaSuccess) {
+    return -1;
+  }
+  return n;
+}
+
+// Every launcher: inputs and the output contiguous on `device`; launches on
+// `stream` without synchronizing and returns the cudaError_t (0 on
+// success). The wrapper checks shapes and shared-memory sizes and computes
+// the plans before calling.
+
+int probe_empty_launch(int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
 
 int probe_vmem_gather_launch(const float* table, float* out, int n_rows,
                              int width, long long n_iters, int seed,
@@ -238,36 +471,70 @@ int probe_vmem_gather_launch(const float* table, float* out, int n_rows,
   return static_cast<int>(cudaGetLastError());
 }
 
-int probe_vmem_scatter_launch(const float* mask, float* out, int n_rows,
-                              int width, long long n_iters, int seed,
-                              int replicas, int device, void* stream) {
+// starts: rows_per_pass (a, c) pairs, the map of i + 1 LCG steps for
+// iteration i; (stride_a, stride_c) the map of rows_per_pass steps;
+// (rows_m, rows_shift) and (slice_m, slice_shift) the magic pairs of n_rows
+// and rows_per_cta; smem: a slice's rows_per_cta * width floats, rounded up
+// to 16 bytes.
+int probe_vmem_scatter_launch(const float* mask, float* out,
+                              const void* starts, int n_rows, int width,
+                              long long n_iters, int seed, int replicas,
+                              int rows_per_cta, int rows_per_pass,
+                              unsigned rows_m, unsigned rows_shift,
+                              unsigned slice_m, unsigned slice_shift,
+                              unsigned stride_a, unsigned stride_c,
+                              long long smem, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = static_cast<size_t>(n_rows) * width * sizeof(float);
-  err = opt_in_shared(reinterpret_cast<const void*>(vmem_scatter_kernel),
-                      smem);
+  ScatterArgs args;
+  args.n_iters = n_iters;
+  args.n_rows = static_cast<uint32_t>(n_rows);
+  args.rows_m = rows_m;
+  args.rows_shift = rows_shift;
+  args.rows_per_cta = static_cast<uint32_t>(rows_per_cta);
+  args.slice_m = slice_m;
+  args.slice_shift = slice_shift;
+  args.slice_vec4 = static_cast<uint32_t>(
+      (static_cast<long long>(rows_per_cta) * width + 3) / 4);
+  args.rows_per_pass = static_cast<uint32_t>(rows_per_pass);
+  args.stride_a = stride_a;
+  args.stride_c = stride_c;
+  args.seed = static_cast<uint32_t>(seed);
+  args.width = static_cast<uint32_t>(width);
+  if (static_cast<long long>(args.slice_vec4) * 16 != smem ||
+      rows_per_pass != kScatterCluster * kScatterThreads / width) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaLaunchConfig_t config;
+  cudaLaunchAttribute attr;
+  err = scatter_config(static_cast<size_t>(smem), replicas,
+                       static_cast<cudaStream_t>(stream), &config, &attr);
   if (err != cudaSuccess) return static_cast<int>(err);
-  vmem_scatter_kernel<<<replicas, (width + 31) / 32 * 32, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      mask, out, static_cast<uint32_t>(n_rows), width, n_iters,
-      static_cast<uint32_t>(seed));
+  err = cudaLaunchKernelEx(&config, vmem_scatter_cluster_kernel, mask, out,
+                           static_cast<const uint2*>(starts), args);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-// depth in [1, 16]; width a multiple of 4, at most 128.
-int probe_hbm_dma_launch(const float* table, float* out, long long n_rows,
-                         int width, long long n_iters, int depth, int seed,
-                         int replicas, int device, void* stream) {
+// depth in [1, 16]; width a multiple of 4, at most 128; plan: replicas'
+// shared [ctas * probes_dma_warps()] uint4 shares; partials: replicas *
+// ctas * width floats; arrivals: replicas zeroed counters.
+int probe_hbm_dma_launch(const float* table, float* out, float* partials,
+                         unsigned* arrivals, const void* plan,
+                         long long n_rows, int width, int ctas, int depth,
+                         int seed, int replicas, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const auto s = static_cast<cudaStream_t>(stream);
   const auto rows = static_cast<uint32_t>(n_rows);
   const auto sd = static_cast<uint32_t>(seed);
+  const auto* p = static_cast<const uint4*>(plan);
   switch (depth) {
 #define PROBE_DMA_CASE(D) \
     case D: \
-      return static_cast<int>( \
-          launch_dma<D>(table, out, rows, width, n_iters, sd, replicas, s));
+      return static_cast<int>(launch_dma<D>(table, out, partials, arrivals, \
+                                            p, rows, width, ctas, sd, \
+                                            replicas, s));
     PROBE_DMA_CASE(1) PROBE_DMA_CASE(2) PROBE_DMA_CASE(3) PROBE_DMA_CASE(4)
     PROBE_DMA_CASE(5) PROBE_DMA_CASE(6) PROBE_DMA_CASE(7) PROBE_DMA_CASE(8)
     PROBE_DMA_CASE(9) PROBE_DMA_CASE(10) PROBE_DMA_CASE(11)

@@ -15,13 +15,18 @@ march or carve kernel would be built from:
 
 Row indices come from :func:`lcg_indices`, the TPU kernels' generator. Each
 function takes ``replicas``: replica ``r`` runs the probe with seed
-``seed + r`` into row ``r`` of the output (one block per replica on the
-card), so ``replicas=1`` computes exactly the TPU kernel's result and more
-replicas measure the whole card. On a CUDA tensor a wrapper launches its
-kernel (building it at first use) or raises; on a CPU tensor it runs the
-plain version. With integer-valued tables every sum is exact, so kernels,
-plain versions and the JAX kernels agree bit for bit. ``launches`` counts
-kernel launches by probe name.
+``seed + r`` into row ``r`` of the output, so ``replicas=1`` computes
+exactly the TPU kernel's result and more replicas measure the whole card.
+On the card the gather and march probes run one block per replica; the
+scatter runs one thread block cluster per replica (:func:`scatter_plan`),
+and the device-memory gather spreads each replica's rows over many CTAs
+(:func:`dma_plan`); both jump ahead in the LCG (:func:`lcg_jump`). On a
+CUDA tensor a wrapper launches its kernel (building it at first use) or
+raises; on a CPU tensor it runs the plain version. With integer-valued
+tables every sum is exact, so kernels, plain versions and the JAX kernels
+agree bit for bit; the scatter is exact for any mask, since every add into
+a cell adds the same value, in whatever order its remote reductions land.
+``launches`` counts kernel launches by probe name.
 
 Run ``python -m voxelized_geometry_tools_tpu_torch.kernels.probes`` on a
 card for the H100's rates (one JSON line; see :func:`main`).
@@ -30,8 +35,10 @@ card for the H100's rates (one JSON line; see :func:`main`).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import json
+import time
 
 import numpy as np
 import torch
@@ -54,6 +61,12 @@ MAX_THREADS = 1024
 # The HBM probe moves a row with one warp in 16-byte pieces.
 DMA_MAX_WIDTH = 128
 DMA_MAX_DEPTH = 16
+# The scatter kernel's threads per CTA and CTAs per cluster (the portable
+# size), and the device-memory kernel's warps per CTA; csrc/probes.cu
+# reports them, and loading the library checks them.
+SCATTER_THREADS = 1024
+SCATTER_CLUSTER = 8
+DMA_WARPS = 16
 # Seeds of successive timed launches lie this far apart (more than any
 # replica count), so each launch of the device-memory probe reads rows the
 # launches before it mostly did not, and finds them cold in L2.
@@ -80,6 +93,33 @@ def _lcg_states(seeds, n: int) -> np.ndarray:
         return np.zeros((s0.shape[0], 0), np.uint32)
     a_pow, geo = _lcg_terms(n)
     return a_pow * s0 + np.uint32(LCG_C) * geo
+
+
+def lcg_jump(steps):
+    """``(a, c)``, uint32 arrays shaped like ``steps``: ``k`` steps of the
+    LCG are the map ``s -> a s + c`` (mod 2^32), for each ``k`` of
+    ``steps``. Composed from the maps of 2^b steps, which commute."""
+    k = np.asarray(steps, np.int64)
+    a = np.ones(k.shape, np.uint32)
+    c = np.zeros(k.shape, np.uint32)
+    pa, pc = np.uint32(LCG_A), np.uint32(LCG_C)
+    with np.errstate(over="ignore"):
+        for bit in range(int(k.max(initial=0)).bit_length()):
+            on = ((k >> bit) & 1).astype(bool)
+            a, c = np.where(on, pa * a, a), np.where(on, pa * c + pc, c)
+            pa, pc = pa * pa, pa * pc + pc
+    return a, c
+
+
+def magic_divisor(d: int):
+    """``(m, shift)`` with ``floor(a / d) == (a * m) >> shift`` for every
+    ``0 <= a < 2^31`` and ``m < 2^32``: ``shift = 31 + ceil(log2 d)``,
+    ``m = ceil(2^shift / d)``. The error ``m d - 2^shift`` is below ``d <=
+    2^(shift - 31)``, so it shifts no quotient of a 31-bit ``a``."""
+    if not 1 <= d < 1 << 31:
+        raise ValueError(f"divisor {d} outside [1, 2^31)")
+    shift = 31 + (d - 1).bit_length()
+    return -(-(1 << shift) // d), shift
 
 
 def lcg_indices(seed, n: int, n_rows: int) -> np.ndarray:
@@ -186,6 +226,82 @@ def vmem_batch_march_plain(table: Tensor, t0: Tensor, n_steps: int,
     return t
 
 
+# -- Plans --------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ScatterPlan:
+    """One replica's accumulator over a cluster of ``SCATTER_CLUSTER`` CTAs:
+    CTA ``k`` owns rows ``[k * rows_per_cta, (k + 1) * rows_per_cta)``
+    (clipped to ``n_rows``; ``rows_per_cta`` a multiple of 4, so each slice
+    starts on 16 bytes) as a float32 slice in its ``smem_bytes`` of shared
+    memory. Thread ``t`` of the cluster adds column ``t % width`` of
+    iterations ``t // width + j * rows_per_pass``."""
+    n_rows: int
+    width: int
+    rows_per_cta: int
+    smem_bytes: int
+
+    def slices(self):
+        """``(lo, hi)`` of each CTA's rows (empty where ``lo == hi``)."""
+        r = self.rows_per_cta
+        return [(min(k * r, self.n_rows), min((k + 1) * r, self.n_rows))
+                for k in range(SCATTER_CLUSTER)]
+
+    @property
+    def rows_per_pass(self) -> int:
+        """Iterations the cluster's threads take at once, a row each."""
+        return SCATTER_CLUSTER * SCATTER_THREADS // self.width
+
+
+def scatter_plan(n_rows: int, width: int, block_limit: int) -> ScatterPlan:
+    """The slices of a ``[n_rows, width]`` float32 accumulator over a
+    cluster, each within ``block_limit`` bytes (the device's opt-in shared
+    memory per block). Raises ``ValueError`` where a slice does not fit."""
+    if n_rows < 1 or width < 1:
+        raise ValueError(f"accumulator {n_rows} x {width} is empty")
+    rows = -(-n_rows // SCATTER_CLUSTER)
+    rows += -rows % 4
+    smem = -(-rows * width // 4) * 16
+    if smem > block_limit:
+        raise ValueError(
+            f"the accumulator of {n_rows} x {width} float32 "
+            f"({4 * n_rows * width} bytes) does not fit a cluster of "
+            f"{SCATTER_CLUSTER} CTAs of {block_limit} bytes of shared memory "
+            "each")
+    return ScatterPlan(n_rows, width, rows, smem)
+
+
+@dataclasses.dataclass(frozen=True)
+class DmaPlan:
+    """One replica's ``n_iters`` rows over ``ctas`` CTAs of ``DMA_WARPS``
+    warps. ``shares[w] = (a, c, rows, summed)`` for warp ``w = cta *
+    DMA_WARPS + warp``: its first state is ``a * seed + c`` (mod 2^32), it
+    reads the ``rows`` iterations from ``lo[w]`` on, and sums the first
+    ``summed`` of them."""
+    ctas: int
+    lo: np.ndarray
+    shares: np.ndarray
+
+
+def dma_plan(n_iters: int, depth: int, replicas: int,
+             sm_count: int) -> DmaPlan:
+    """Splits each replica's sequence into contiguous, balanced shares over
+    enough warps to fill the card: one CTA of ``DMA_WARPS`` warps per SM
+    for one replica (at depth 8 that keeps 16,896 rows in flight), divided
+    among the replicas, and no more CTAs than the rows fill. Only
+    iterations below ``n_iters - depth`` are summed."""
+    ctas = max(1, min(sm_count // replicas, -(-n_iters // DMA_WARPS)))
+    warps = ctas * DMA_WARPS
+    bounds = np.arange(warps + 1, dtype=np.int64) * n_iters // warps
+    lo, rows = bounds[:-1], np.diff(bounds)
+    a, c = lcg_jump(lo + 1)
+    summed = np.clip(n_iters - depth - lo, 0, rows)
+    shares = np.stack([a, c, rows.astype(np.uint32),
+                       summed.astype(np.uint32)], axis=1)
+    return DmaPlan(ctas, lo, shares)
+
+
 # -- Kernels ------------------------------------------------------------------
 
 
@@ -194,24 +310,93 @@ def _library():
     lib = build.load_library("probes")
     lib.probes_max_shared_bytes.argtypes = [ctypes.c_int]
     lib.probes_max_shared_bytes.restype = ctypes.c_int
+    for fn, want in ((lib.probes_scatter_threads, SCATTER_THREADS),
+                     (lib.probes_scatter_cluster, SCATTER_CLUSTER),
+                     (lib.probes_dma_warps, DMA_WARPS)):
+        fn.argtypes = []
+        fn.restype = ctypes.c_int
+        if fn() != want:
+            raise RuntimeError(f"csrc/probes.cu has {fn()} where probes.py "
+                               f"plans with {want}")
+    lib.probe_vmem_scatter_max_clusters.argtypes = [ctypes.c_longlong,
+                                                     ctypes.c_int]
+    lib.probe_vmem_scatter_max_clusters.restype = ctypes.c_int
+    lib.probe_empty_launch.argtypes = [ctypes.c_int, ctypes.c_void_p]
     # replicas, device, stream
     tail = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.probe_vmem_gather_launch.argtypes = (
         [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_int,
                                  ctypes.c_longlong, ctypes.c_int] + tail)
     lib.probe_vmem_scatter_launch.argtypes = (
-        [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_int,
-                                 ctypes.c_longlong, ctypes.c_int] + tail)
+        [ctypes.c_void_p] * 3
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+           ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        + [ctypes.c_uint32] * 6 + [ctypes.c_longlong, ctypes.c_int,
+                                   ctypes.c_void_p])
     lib.probe_hbm_dma_launch.argtypes = (
-        [ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_int,
-                                 ctypes.c_longlong, ctypes.c_int,
+        [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
+                                 ctypes.c_int, ctypes.c_int,
                                  ctypes.c_int] + tail)
     lib.probe_vmem_batch_march_launch.argtypes = (
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + tail)
-    for fn in (lib.probe_vmem_gather_launch, lib.probe_vmem_scatter_launch,
-               lib.probe_hbm_dma_launch, lib.probe_vmem_batch_march_launch):
+    for fn in (lib.probe_empty_launch, lib.probe_vmem_gather_launch,
+               lib.probe_vmem_scatter_launch, lib.probe_hbm_dma_launch,
+               lib.probe_vmem_batch_march_launch):
         fn.restype = ctypes.c_int
     return lib
+
+
+def scatter_starts(rows_per_pass: int):
+    """``([rows_per_pass, 2] uint32, a, c)``: the LCG map of ``i + 1`` steps
+    for each iteration ``i`` a scatter thread starts at, and the map of
+    ``rows_per_pass`` steps by which it goes on."""
+    a, c = lcg_jump(np.arange(1, rows_per_pass + 1))
+    return np.stack([a, c], 1), int(a[-1]), int(c[-1])
+
+
+@functools.lru_cache(maxsize=64)
+def _scatter_launch_args(n_rows: int, width: int, device: torch.device):
+    """The scatter kernel's plan-dependent launch arguments for one shape
+    and device, made once: the start maps on ``device`` and the ints from
+    ``rows_per_cta`` to ``smem`` of ``probe_vmem_scatter_launch``. Raises
+    ``ValueError`` where the accumulator does not fit a cluster or the
+    device holds no such cluster."""
+    plan = scatter_plan(n_rows, width, max_shared_bytes(device))
+    held = _library().probe_vmem_scatter_max_clusters(plan.smem_bytes,
+                                                      device.index or 0)
+    if held < 1:
+        raise ValueError(
+            f"the device holds {held} clusters of {SCATTER_CLUSTER} CTAs "
+            f"with {plan.smem_bytes} bytes of shared memory each "
+            f"(accumulator {n_rows} x {width})")
+    starts, stride_a, stride_c = scatter_starts(plan.rows_per_pass)
+    starts = torch.from_numpy(starts.view(np.int32)).to(device)
+    return starts, (plan.rows_per_cta, plan.rows_per_pass,
+                    *magic_divisor(n_rows), *magic_divisor(plan.rows_per_cta),
+                    stride_a, stride_c, plan.smem_bytes)
+
+
+@functools.lru_cache(maxsize=64)
+def _dma_shares(n_iters: int, depth: int, replicas: int,
+                device: torch.device):
+    """The :func:`dma_plan` of a launch and its shares as int32 on
+    ``device`` (made once per shape and device)."""
+    plan = dma_plan(n_iters, depth, replicas,
+                    torch.cuda.get_device_properties(device)
+                    .multi_processor_count)
+    return plan, torch.from_numpy(plan.shares.view(np.int32)).to(device)
+
+
+@functools.lru_cache(maxsize=64)
+def _dma_scratch(replicas: int, ctas: int, width: int, device: torch.device,
+                 stream: int):
+    """The device-memory kernel's scratch for launches on one stream: the
+    CTAs' partial sums, which each launch writes before it reads them, and
+    the arrival counters, zeroed once and left at 0 again by each launch.
+    Launches on one stream do not overlap, so they share it."""
+    return (torch.empty(replicas * ctas * width, dtype=torch.float32,
+                        device=device),
+            torch.zeros(replicas, dtype=torch.int32, device=device))
 
 
 def max_shared_bytes(device: torch.device) -> int:
@@ -253,9 +438,13 @@ def _check_dma_args(table: Tensor, n_iters: int, depth: int) -> None:
                          f"{DMA_MAX_WIDTH}] (one warp, 16 bytes a lane)")
 
 
-def _launch(name: str, fn, *args, device) -> None:
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _launch(name: str, fn, *args, device, stream=None) -> None:
     err = fn(*args, device.index or 0,
-             torch.cuda.current_stream(device).cuda_stream)
+             _stream(device) if stream is None else stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed (cudaError_t {err})")
     launches[name] += 1
@@ -285,7 +474,10 @@ def vmem_gather(table: Tensor, n_iters: int, replicas: int = 1,
 def vmem_scatter(mask: Tensor, n_iters: int, n_rows: int, replicas: int = 1,
                  seed: int = SCATTER_SEED) -> Tensor:
     """:func:`vmem_scatter_plain` of a ``[1, width]`` float32 mask, by the
-    kernel on a CUDA tensor (the accumulator in shared memory)."""
+    cluster kernel on a CUDA tensor (one cluster per replica, the
+    accumulator in its CTAs' shared memory, :func:`scatter_plan`). Raises
+    ``ValueError`` where the accumulator does not fit a cluster or the
+    device holds no such cluster."""
     if mask.device.type == "cpu":
         return vmem_scatter_plain(mask, n_iters, n_rows, replicas, seed)
     _check_input(mask, "mask", 2)
@@ -294,21 +486,24 @@ def vmem_scatter(mask: Tensor, n_iters: int, n_rows: int, replicas: int = 1,
     if mask.shape[0] != 1 or width > MAX_THREADS:
         raise ValueError(f"mask must be [1, width <= {MAX_THREADS}], got "
                          f"{tuple(mask.shape)}")
-    _check_shared(n_rows, width, mask.device, "the accumulator")
+    dev = mask.device
+    starts, plan_args = _scatter_launch_args(n_rows, width, dev)
     _check_sequences(seed, replicas, n_iters)
     out = torch.empty(replicas, n_rows, width, dtype=torch.float32,
-                      device=mask.device)
+                      device=dev)
     _launch("vmem_scatter", _library().probe_vmem_scatter_launch,
-            mask.data_ptr(), out.data_ptr(), n_rows, width, n_iters, seed,
-            replicas, device=mask.device)
+            mask.data_ptr(), out.data_ptr(), starts.data_ptr(), n_rows, width,
+            n_iters, seed, replicas, *plan_args, device=dev)
     return out
 
 
 def hbm_dma(table: Tensor, n_iters: int, depth: int, replicas: int = 1,
             seed: int = DMA_SEED) -> Tensor:
     """:func:`hbm_dma_plain` of a ``[n_rows, width]`` float32 table in device
-    memory, by the kernel's ``depth``-stage ``cp.async`` ring on a CUDA
-    tensor."""
+    memory, by the kernel on a CUDA tensor: each replica's rows split over
+    the CTAs of :func:`dma_plan`, ``depth`` rows in flight per warp through
+    a ``cp.async`` ring, partial sums reduced in a fixed order (the same
+    bits on every run)."""
     if table.device.type == "cpu":
         return hbm_dma_plain(table, n_iters, depth, replicas, seed)
     _check_input(table, "table", 2)
@@ -317,15 +512,29 @@ def hbm_dma(table: Tensor, n_iters: int, depth: int, replicas: int = 1,
     if table.data_ptr() % 16:
         raise ValueError("table must be 16-byte aligned")
     n_rows, width = table.shape
-    if n_rows >= 2 ** 31:
-        raise ValueError(f"{n_rows} rows above the int32 row index")
+    if n_rows >= 2 ** 31 or n_iters >= 2 ** 31:
+        raise ValueError(f"{n_rows} rows or {n_iters} iterations above the "
+                         "int32 range")
     _check_sequences(seed, replicas, n_iters)
-    out = torch.empty(replicas, width, dtype=torch.float32,
-                      device=table.device)
+    dev = table.device
+    plan, shares = _dma_shares(n_iters, depth, replicas, dev)
+    stream = _stream(dev)
+    partials, arrivals = _dma_scratch(replicas, plan.ctas, width, dev, stream)
+    out = torch.empty(replicas, width, dtype=torch.float32, device=dev)
     _launch("hbm_dma", _library().probe_hbm_dma_launch, table.data_ptr(),
-            out.data_ptr(), n_rows, width, n_iters, depth, seed, replicas,
-            device=table.device)
+            out.data_ptr(), partials.data_ptr(), arrivals.data_ptr(),
+            shares.data_ptr(), n_rows, width, plan.ctas, depth, seed,
+            replicas, device=dev, stream=stream)
     return out
+
+
+def empty_kernel(device: torch.device) -> None:
+    """Launches ``csrc/probes.cu``'s empty kernel (one warp) on the current
+    stream: what a launch costs the card, the floor under every probe's
+    time. Counted nowhere."""
+    err = _library().probe_empty_launch(device.index or 0, _stream(device))
+    if err != 0:
+        raise RuntimeError(f"empty kernel launch failed (cudaError_t {err})")
 
 
 def vmem_batch_march(table: Tensor, t0: Tensor, n_steps: int,
@@ -356,19 +565,19 @@ def vmem_batch_march(table: Tensor, t0: Tensor, n_steps: int,
 # -- Entry point --------------------------------------------------------------
 
 # The card's shapes: the corner row's real width (8 float32) for the
-# shared-memory probes (the TPU's 4096 x 128 table and 2048/8192-row
-# accumulators, 1-4 MiB, do not fit a block's 227 KiB), the TPU's
-# 2^20 x 128 table for the device-memory probe.
+# shared-memory probes (the TPU's 4096 x 128 table, 2 MiB, does not fit a
+# block's 227 KiB; the scatter's accumulator spans a cluster, so the TPU's
+# 8192-row one runs at this width), the TPU's 2^20 x 128 table for the
+# device-memory probe.
 WIDTH = 8
 TABLE_ROWS = 4096
 GATHER_ITERS = 100_000
 SCATTER_ITERS = 100_000
-ACC_ROWS = (2048, 4096)
+ACC_ROWS = (2048, 4096, 8192)
+# The TPU's own width, 128, over a cluster (1 MiB).
+WIDE_ACC_ROWS = 2048
 DMA_ROWS, DMA_WIDTH, DMA_ITERS = 1 << 20, 128, 20_000
 DMA_DEPTHS = (2, 8, 16)
-# Warps per SM of the device-memory probe's extra full-card runs: one warp
-# is bound by its own serial latency per row, more hide it.
-DMA_WARPS_PER_SM = (4, 16)
 MARCH_STEPS = 64
 MARCH_BATCHES = (64, 256)
 
@@ -382,6 +591,11 @@ def integer_table(n_rows: int, width: int, device, seed: int = 0) -> Tensor:
 
 
 TIMED_CALLS = 10
+# Cycles per second the card's spin is sized by (above the H100's 1.98 GHz
+# boost clock, so a spin lasts at least as long as asked), and the longest
+# spin a queued timing asks for, in seconds.
+SPIN_HZ = 2.0e9
+MAX_SPIN_S = 0.2
 
 
 def cuda_ms(fn, reps: int = TIMED_CALLS) -> float:
@@ -398,14 +612,53 @@ def cuda_ms(fn, reps: int = TIMED_CALLS) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def queued_ms(fn, reps: int = TIMED_CALLS) -> float:
+    """Mean milliseconds per call of ``fn`` as the card runs it: as
+    :func:`cuda_ms`, with the timed calls queued behind a spin of the card
+    (``torch.cuda._sleep``) that outlasts the host's time to enqueue them,
+    so the launches' host cost does not pace the card. For ``fn`` that does
+    not synchronize. Raises ``RuntimeError`` where the host still fell
+    behind the card."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    spin_s = min(4 * reps * host_s + 1e-3, MAX_SPIN_S)
+    queued = torch.cuda.Event()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(spin_s * SPIN_HZ))
+    queued.record()
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    ran_dry = queued.query()
+    torch.cuda.synchronize()
+    if ran_dry:
+        raise RuntimeError(f"the host took longer to enqueue {reps} calls "
+                           f"than the card's {spin_s:.4f} s spin")
+    return start.elapsed_time(stop) / reps
+
+
+def launch_floor_ms(device: torch.device, reps: int = 100) -> float:
+    """The empty kernel's time per launch, timed as the probes are."""
+    return queued_ms(lambda: empty_kernel(device), reps)
+
+
 def main() -> dict:
     """The probes at the card's shapes, for one replica (the TPU kernels'
-    own measurement, the keys of ``inkernel_microbench.main()``) and for
-    one replica per SM (``full_card``), as ns per row (per ray-step for the
-    march); the full-card numbers are the aggregate time per row over all
-    replicas. Each timed launch of the device-memory probe reads
-    a fresh row sequence. Prints the dict as one JSON line and returns
-    it."""
+    own measurement, the keys of ``inkernel_microbench.main()``: on the card
+    the scatter spans one cluster and the device-memory gather the whole
+    card) and for one replica per SM (``full_card``), as ns per row (per
+    ray-step for the march), timed by :func:`queued_ms`; the full-card
+    numbers are the aggregate time per row over all replicas. Each timed
+    launch of the device-memory probe reads a fresh row sequence.
+    ``launch_floor_ms`` is the empty kernel's time and ``fixed_ms`` what a
+    scatter or device-memory gather launch costs besides its rows. Prints
+    the dict as one JSON line and returns it."""
     if not torch.cuda.is_available():
         raise SystemExit("probes: no CUDA device; the probes run only on a "
                          "CUDA card")
@@ -414,48 +667,59 @@ def main() -> dict:
         dev).multi_processor_count
     table = integer_table(TABLE_ROWS, WIDTH, dev)
     mask = integer_table(1, WIDTH, dev, seed=1)
+    wide_mask = integer_table(1, DMA_WIDTH, dev, seed=1)
     big = integer_table(DMA_ROWS, DMA_WIDTH, dev, seed=2)
     results = {"device": torch.cuda.get_device_name(dev),
                "replicas_full": replicas_full,
                "shapes": {"table": [TABLE_ROWS, WIDTH],
                           "gather_iters": GATHER_ITERS,
-                          "scatter_acc": [[r, WIDTH] for r in ACC_ROWS],
+                          "scatter_acc": [[r, WIDTH] for r in ACC_ROWS]
+                          + [[WIDE_ACC_ROWS, DMA_WIDTH]],
                           "scatter_iters": SCATTER_ITERS,
                           "dma_table": [DMA_ROWS, DMA_WIDTH],
                           "dma_iters": DMA_ITERS,
                           "march_steps": MARCH_STEPS,
-                          "march_batches": list(MARCH_BATCHES)}}
+                          "march_batches": list(MARCH_BATCHES)},
+               "launch_floor_ms": launch_floor_ms(dev)}
     full = {}
     for reps, out in ((1, results), (replicas_full, full)):
-        ms = cuda_ms(lambda: vmem_gather(table, GATHER_ITERS, reps))
+        ms = queued_ms(lambda: vmem_gather(table, GATHER_ITERS, reps))
         out["vmem_gather_ns_per_row"] = ms * 1e6 / (GATHER_ITERS * reps)
         for acc_rows in ACC_ROWS:
-            ms = cuda_ms(lambda: vmem_scatter(mask, SCATTER_ITERS, acc_rows,
-                                              reps))
+            ms = queued_ms(lambda: vmem_scatter(mask, SCATTER_ITERS,
+                                                acc_rows, reps))
             out[f"vmem_scatter_ns_per_row_{acc_rows}"] = (
                 ms * 1e6 / (SCATTER_ITERS * reps))
+        ms = queued_ms(lambda: vmem_scatter(wide_mask, SCATTER_ITERS,
+                                            WIDE_ACC_ROWS, reps))
+        out[f"vmem_scatter_ns_per_row_{WIDE_ACC_ROWS}x{DMA_WIDTH}"] = (
+            ms * 1e6 / (SCATTER_ITERS * reps))
         for depth in DMA_DEPTHS:
             # A fresh sequence per launch: one replica's 20,000 rows (10 MB)
             # would otherwise stay in L2 from one launch to the next.
-            seeds = fresh_seeds(DMA_SEED, TIMED_CALLS + 1, reps, DMA_ITERS)
-            ms = cuda_ms(lambda: hbm_dma(big, DMA_ITERS, depth, reps,
-                                         next(seeds)))
+            seeds = fresh_seeds(DMA_SEED, TIMED_CALLS + 2, reps, DMA_ITERS)
+            ms = queued_ms(lambda: hbm_dma(big, DMA_ITERS, depth, reps,
+                                           next(seeds)))
             out[f"hbm_dma_ns_per_row_depth{depth}"] = (
                 ms * 1e6 / (DMA_ITERS * reps))
         for batch in MARCH_BATCHES:
             t0 = torch.zeros(1, batch, device=dev)
-            ms = cuda_ms(lambda: vmem_batch_march(table, t0, MARCH_STEPS,
-                                                  reps))
+            ms = queued_ms(lambda: vmem_batch_march(table, t0, MARCH_STEPS,
+                                                    reps))
             out[f"march_step_ns_per_ray_batch{batch}"] = (
                 ms * 1e6 / (MARCH_STEPS * batch * reps))
-    for per_sm in DMA_WARPS_PER_SM:
-        reps = per_sm * replicas_full
-        seeds = fresh_seeds(DMA_SEED, TIMED_CALLS + 1, reps, DMA_ITERS)
-        ms = cuda_ms(lambda: hbm_dma(big, DMA_ITERS, DMA_DEPTHS[-1], reps,
-                                     next(seeds)))
-        full[f"hbm_dma_ns_per_row_depth{DMA_DEPTHS[-1]}_warps_per_sm"
-             f"{per_sm}"] = ms * 1e6 / (DMA_ITERS * reps)
     results["full_card"] = full
+    # What a launch costs besides its rows, at one replica: the scatter with
+    # one iteration (cluster launch, zeroing, both barriers, write-out), and
+    # the device-memory gather over the card with one row a warp (launch,
+    # one row's latency, the fixed-order reduction over every CTA).
+    one_row = replicas_full * DMA_WARPS
+    seeds = fresh_seeds(DMA_SEED + 1, TIMED_CALLS + 2, 1, one_row)
+    results["fixed_ms"] = {
+        "vmem_scatter_4096_one_iteration": queued_ms(
+            lambda: vmem_scatter(mask, 1, 4096)),
+        "hbm_dma_depth8_one_row_a_warp": queued_ms(
+            lambda: hbm_dma(big, one_row, 8, 1, next(seeds)))}
     print(json.dumps(results), flush=True)
     return results
 
