@@ -7,8 +7,10 @@ parallel), checks each bit for bit against its plain PyTorch version, then
 drives the main path at full size (512^3 two-field EDT -> corner table ->
 640x480 sphere-traced renders, the scene and camera of bench.py) and the
 differentiable ``entry()``, checking every result. Then it drives every
-other EDT backend through the same 512^3 EDT, the best-first kernel's
-global variant through an EDT whose axes are too long for the staged one,
+other EDT backend through the same 512^3 EDT (the full sweep's staged
+variant with its times against the sweep's own floor), the best-first
+kernel's and the full sweep's global variants through an EDT whose axes are
+too long for the staged ones,
 the large-grid path (a 1024^3 signed EDT that takes the slab-streamed
 pipeline on its own, and a render from it without a corner table), the
 primitive-rate probes' entry point (``kernels.probes.main``, the
@@ -48,24 +50,27 @@ PALLAS = "voxelized_geometry_tools_tpu/kernels/edt_pallas.py:"
 # Each kernel of the port: (source, the TPU kernel it replaces). The
 # best-first source holds three: the staged variant (either hoist_cmin,
 # every axis whose 32-line block fits shared memory: the main path's) and
-# the global variant with hoisted and with in-kernel chunk minima.
+# the global variant with hoisted and with in-kernel chunk minima. The
+# full-sweep source holds two: the staged variant and, for longer axes, the
+# global one.
 KERNELS = {
     "edt_bestfirst_staged": (CSRC + "edt_bestfirst.cu", PALLAS + "301"),
     "edt_bestfirst": (CSRC + "edt_bestfirst.cu", PALLAS + "301"),
     "edt_bestfirst_inkernel": (CSRC + "edt_bestfirst.cu", PALLAS + "241"),
-    "edt_envelope": (CSRC + "edt_envelope.cu", PALLAS + "111"),
+    "edt_envelope_staged": (CSRC + "edt_envelope.cu", PALLAS + "111"),
+    "edt_envelope_global": (CSRC + "edt_envelope.cu", PALLAS + "111"),
     "edt_windowed": (CSRC + "edt_windowed.cu", PALLAS + "161"),
 }
 # The 512^3 signed EDT through each kernel backend: (backend, hoist_cmin,
 # the kernel that must run it).
 SWEEP = (("cuda-bestfirst", True, "edt_bestfirst_staged"),
          ("cuda-bestfirst", False, "edt_bestfirst_staged"),
-         ("cuda-envelope", True, "edt_envelope"),
+         ("cuda-envelope", True, "edt_envelope_staged"),
          ("cuda-windowed", True, "edt_windowed"))
 # An axis too long for the staged block: the global variant's EDT grid is
 # [GLOBAL_X, GLOBAL_N, GLOBAL_N].
 GLOBAL_N, GLOBAL_X = 2048, 4
-# Envelope-kernel cases: axis lengths, the last only for the global variant.
+# Envelope-kernel cases: axis lengths, the last only for the global variants.
 ENVELOPE_NS = (37, 300, 512, 513, 1024, GLOBAL_N)
 # H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM bytes/s, float32
 # add/multiply/FMA instructions/s (67 TFLOP/s counting an FMA as two
@@ -154,15 +159,27 @@ def kernel_fns():
         "edt_bestfirst": eb.parabolic_envelope_last_global,
         "edt_bestfirst_inkernel": functools.partial(
             eb.parabolic_envelope_last_global, hoist_cmin=False),
-        "edt_envelope": ee.parabolic_envelope_last,
+        "edt_envelope_staged": ee.parabolic_envelope_last_staged,
+        "edt_envelope_global": ee.parabolic_envelope_last_global,
         "edt_windowed": ew.parabolic_envelope_last,
     }
+
+
+def staged_planned(kname, f):
+    """Whether the staged variant ``kname`` plans ``f`` (its block fits);
+    True for every other kernel."""
+    eb, ee, _ = kernel_modules()
+    if kname == "edt_bestfirst_staged":
+        return eb.plan_lines(f)[0].staged
+    if kname == "edt_envelope_staged":
+        return ee.plan(f)[1] > 0
+    return True
 
 
 def reset_launches():
     eb, ee, ew = kernel_modules()
     eb.launches_staged = eb.launches = eb.launches_inkernel = 0
-    ee.launches = ew.launches = 0
+    ee.launches_staged = ee.launches = ew.launches = 0
 
 
 def read_launches():
@@ -170,7 +187,8 @@ def read_launches():
     return {"edt_bestfirst_staged": eb.launches_staged,
             "edt_bestfirst": eb.launches,
             "edt_bestfirst_inkernel": eb.launches_inkernel,
-            "edt_envelope": ee.launches, "edt_windowed": ew.launches}
+            "edt_envelope_staged": ee.launches_staged,
+            "edt_envelope_global": ee.launches, "edt_windowed": ew.launches}
 
 
 @contextlib.contextmanager
@@ -264,7 +282,7 @@ def nonneg_envelope_cases():
 
 
 def phase_kernel_vs_plain():
-    """Every kernel bitwise against the plain version: the staged variant
+    """Every kernel bitwise against the plain version: the staged variants
     on every case whose block fits (the global variants on all, the
     windowed kernel on f >= 0 only). Returns the largest error per
     kernel."""
@@ -276,8 +294,7 @@ def phase_kernel_vs_plain():
         cases = list(zip(signed + nonneg, refs))
         if kname == "edt_windowed":
             cases = cases[len(signed):]
-        if kname == "edt_bestfirst_staged":
-            cases = [c for c in cases if k.plan_lines(c[0][1])[0].staged]
+        cases = [c for c in cases if staged_planned(kname, c[0][1])]
         worst[kname] = 0.0
         layouts = set()
         for (name, f), ref in cases:
@@ -289,8 +306,8 @@ def phase_kernel_vs_plain():
                 raise AssertionError(f"{kname} != plain on {name}: max abs "
                                      f"err {err}")
             layouts.add(k.plan_lines(f)[0].lines_contiguous)
-        if kname == "edt_bestfirst_staged" and layouts != {False, True}:
-            raise AssertionError("the staged cases miss a layout")
+        if layouts != {False, True}:
+            raise AssertionError(f"the {kname} cases miss a layout")
         log(f"kernel vs plain: {kname}: {len(cases)} cases bitwise equal "
             f"(n up to {max(f.shape[-1] for (_, f), _ in cases)})")
     return worst
@@ -452,6 +469,14 @@ def envelope_bound(x):
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
+def sweep_floor_ms(x):
+    """A full sweep's own floor on ``x`` on the H100: each output takes all
+    n candidates of its line, each one min at the min/max rate (and one add,
+    whose issue slot the same rate already counts: two of 128 lanes a clock
+    an SM against the min's 64)."""
+    return x.numel() * x.shape[-1] / F32_MINMAX_PER_S * 1e3
+
+
 def visit_arithmetic(x, r, tile_q):
     """What a pass ordered and stopped by tile-level bounds computes on
     ``x`` (result ``r``), in tiles of ``tile_q`` positions (``visit_count``):
@@ -526,7 +551,7 @@ def time_passes(fns, fy, dz):
     """Each wrapper's y- and z-pass times on one field."""
     times = {}
     for kname, fn in fns.items():
-        reps = 2 if kname == "edt_envelope" else 5
+        reps = 2 if kname.startswith("edt_envelope") else 5
         times[kname] = (cuda_ms(lambda: fn(fy), reps),
                         cuda_ms(lambda: fn(dz), reps))
     return times
@@ -552,16 +577,26 @@ def phase_backend_sweep(mask, sdf, t_plain):
     for kname, (ty, tz) in times.items():
         log(f"edt time {kname}: y {ty:.3f} ms, z {tz:.3f} ms (plain y "
             f"{t_plain['plain_y']:.3f} ms, z {t_plain['plain_z']:.3f} ms)")
+    for kname in ("edt_envelope_staged", "edt_envelope_global"):
+        for name, x, ms in (("y", fy, times[kname][0]),
+                            ("z", dz, times[kname][1])):
+            floor = sweep_floor_ms(x)
+            log(f"edt {kname} {name} pass: {ms:.3f} ms; full-sweep floor "
+                f"{floor:.3f} ms ({x.numel() * x.shape[-1]} candidates at "
+                f"{F32_MINMAX_PER_S:.3e} min/s), floor / time "
+                f"{floor / ms:.3f}; byte bound "
+                f"{envelope_bound(x)['bytes_ms']:.4f} ms")
     del fy, dz, ry, rz
     return launches, errs, times
 
 
 def phase_global_variant():
-    """An axis too long for the staged block: the signed EDT of a [4, 2048,
+    """An axis too long for the staged blocks: the signed EDT of a [4, 2048,
     2048] grid takes the best-first kernel's global variant on its own, for
-    both hoist_cmin, and must equal the plain backend bit for bit; then the
-    global variants' per-pass times, the plain passes' and the bounds on
-    that grid's stacked field."""
+    both hoist_cmin, and the full sweep's global variant through the
+    cuda-envelope backend, and must equal the plain backend bit for bit;
+    then the global variants' per-pass times, the plain passes' and the
+    bounds on that grid's stacked field."""
     from voxelized_geometry_tools_tpu_torch.kernels import edt_bestfirst as k
     from voxelized_geometry_tools_tpu_torch.ops import edt
 
@@ -573,15 +608,18 @@ def phase_global_variant():
     plain = edt.signed_distance_from_filled_mask(mask, RESOLUTION,
                                                  backend="plain")
     launches, errs = {}, {}
-    for hoist, kname in ((True, "edt_bestfirst"),
-                         (False, "edt_bestfirst_inkernel")):
+    for backend, hoist, kname in (
+            ("cuda-bestfirst", True, "edt_bestfirst"),
+            ("cuda-bestfirst", False, "edt_bestfirst_inkernel"),
+            ("cuda-envelope", True, "edt_envelope_global")):
         launches[kname], errs[kname] = edt_through(
-            mask, "cuda-bestfirst", hoist, kname, plain,
+            mask, backend, hoist, kname, plain,
             f"edt [{GLOBAL_X}, {n}, {n}]")
     fy, dz, _, _ = stacked_passes(mask)
     for x in (fy, dz):
-        if k.plan_lines(x)[0].staged:
-            raise AssertionError(f"an axis of {n} planned the staged variant")
+        if any(staged_planned(name, x) for name in
+               ("edt_bestfirst_staged", "edt_envelope_staged")):
+            raise AssertionError(f"an axis of {n} planned a staged variant")
     fns = kernel_fns()
     times = time_passes({name: fns[name] for name in launches}, fy, dz)
     plain_ms = (cuda_ms(lambda: k.parabolic_envelope_last_plain(fy), 1),
@@ -827,7 +865,8 @@ def phase_gradients():
 
 def probe_cases(full):
     """(name, kernel call, plain call) for each probe: the TPU seeds and
-    others, row counts that are not powers of two, the scatter's 8192 x 8
+    others, row counts that are not powers of two, the gather over the
+    plan's CTAs and over 1, 7 and 132 CTAs a replica, the scatter's 8192 x 8
     and 2048 x 128 accumulators over a cluster with 1 and 1,001 iterations
     (fewer than the cluster's threads, and ragged against them) besides
     the timed counts, dma depths 1/2/8/16 and n_iters == depth (zeros) on
@@ -840,11 +879,16 @@ def probe_cases(full):
     for n_rows, width, seed in ((pr.TABLE_ROWS, pr.WIDTH, pr.GATHER_SEED),
                                 (3001, pr.WIDTH, 7), (1000, 37, 424242)):
         table = pr.integer_table(n_rows, width, dev, seed=n_rows)
-        for reps, iters in ((1, pr.GATHER_ITERS), (full, 20_000)):
+        for reps, iters, ctas in ((1, pr.GATHER_ITERS, None),
+                                  (full, 20_000, None),
+                                  (1, pr.GATHER_ITERS, 1), (1, 20_000, 7),
+                                  (1, 1001, full)):
             args = (iters, reps, seed)
             cases.append((f"vmem_gather({n_rows}x{width}, seed {seed}, "
-                          f"{reps} replicas)",
-                          functools.partial(pr.vmem_gather, table, *args),
+                          f"{iters} iterations, {reps} replicas, ctas "
+                          f"{ctas})",
+                          functools.partial(pr.vmem_gather_split, table,
+                                            iters, ctas, reps, seed),
                           functools.partial(pr.vmem_gather_plain, table,
                                             *args)))
     for n_rows, width, seed in ((2048, pr.WIDTH, pr.SCATTER_SEED),
@@ -893,9 +937,10 @@ def probe_nonintegers(full):
     on zeros of both signs, infinities, a subnormal, values that overflow
     and NaN, against the plain version on the CPU (sequential adds; the
     remote reductions keep subnormals, the card's index_add_ flushes
-    them); two launches of the device-memory gather give the same bits (its
-    reduction order is fixed by its plan) and agree with a float64 sum of
-    the same rows within DMA_REL_TOL of their absolute sum."""
+    them); two launches of each gather (device memory, shared memory) give
+    the same bits (their reduction order is fixed by their plans) and agree
+    with a float64 sum of the same rows within DMA_REL_TOL of their absolute
+    sum."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     mask = torch.rand(1, probes.WIDTH, generator=gen, device="cuda") - 0.5
     special = torch.tensor([[0.0, -0.0, float("inf"), -float("inf"), 1e-45,
@@ -913,30 +958,40 @@ def probe_nonintegers(full):
                 f"vmem_scatter on a non-integer mask != plain ({n_rows} rows, "
                 f"{reps} replicas) at {int((~same).sum())} entries: max abs "
                 f"err {max_abs_err(got, ref)}")
-    table = torch.randn(probes.DMA_ROWS, probes.DMA_WIDTH, generator=gen,
+    big = torch.randn(probes.DMA_ROWS, probes.DMA_WIDTH, generator=gen,
+                      device="cuda")
+    small = torch.randn(probes.TABLE_ROWS, probes.WIDTH, generator=gen,
                         device="cuda")
-    worst = 0.0
-    for reps in (1, full):
-        args = (probes.DMA_ITERS, 8, reps)
-        first, second = probes.hbm_dma(table, *args), probes.hbm_dma(table,
-                                                                     *args)
-        if not torch.equal(first, second):
-            raise AssertionError(f"hbm_dma on a non-integer table: two "
-                                 f"launches differ ({reps} replicas)")
-        idx = probes._replica_indices(probes.DMA_SEED, reps,
-                                      probes.DMA_ITERS - 8, probes.DMA_ROWS,
-                                      "cuda")
-        rows = table[idx].double()
-        err = (first.double() - rows.sum(dim=1)).abs() / rows.abs().sum(dim=1)
-        worst = max(worst, float(err.max()))
-        del rows
-    if worst > DMA_REL_TOL:
-        raise AssertionError(f"hbm_dma on a non-integer table: {worst} of "
-                             f"the absolute sum from a float64 sum, above "
-                             f"{DMA_REL_TOL}")
+    gathers = {
+        "hbm_dma": (big, probes.DMA_SEED, probes.DMA_ITERS - 8,
+                    lambda reps: probes.hbm_dma(big, probes.DMA_ITERS, 8,
+                                                reps)),
+        "vmem_gather": (small, probes.GATHER_SEED, probes.GATHER_ITERS,
+                        lambda reps: probes.vmem_gather(
+                            small, probes.GATHER_ITERS, reps)),
+    }
+    worst = {}
+    for name, (table, seed, summed, fn) in gathers.items():
+        worst[name] = 0.0
+        for reps in (1, full):
+            first, second = fn(reps), fn(reps)
+            if not torch.equal(first, second):
+                raise AssertionError(f"{name} on a non-integer table: two "
+                                     f"launches differ ({reps} replicas)")
+            idx = probes._replica_indices(seed, reps, summed,
+                                          table.shape[0], "cuda")
+            rows = table[idx].double()
+            err = ((first.double() - rows.sum(dim=1)).abs()
+                   / rows.abs().sum(dim=1))
+            worst[name] = max(worst[name], float(err.max()))
+            del rows
+        if worst[name] > DMA_REL_TOL:
+            raise AssertionError(f"{name} on a non-integer table: "
+                                 f"{worst[name]} of the absolute sum from a "
+                                 f"float64 sum, above {DMA_REL_TOL}")
     log(f"probes non-integer: scatter == plain (bitwise, tolerance 0, on "
-        f"special values too); hbm_dma launches identical, within "
-        f"{worst:.3e} of the absolute sum from a float64 sum (limit "
+        f"special values too); hbm_dma and vmem_gather launches identical, "
+        f"within {worst} of the absolute sum from a float64 sum (limit "
         f"{DMA_REL_TOL})")
 
 
@@ -989,6 +1044,9 @@ def phase_probes():
         "(timed as the probes are, queued behind a spin)")
     log(f"fixed cost of a launch besides its rows (ms, one replica): "
         f"{json.dumps(rates['fixed_ms'])}")
+    log(f"vmem_gather at one replica by CTAs a replica (ms, queued; the "
+        f"plan takes {probes.gather_plan(probes.GATHER_ITERS, probes.WIDTH, 1, full).ctas}): "
+        f"{json.dumps(rates['vmem_gather_cta_sweep_ms'])}")
 
     dev = torch.device("cuda")
     table = probes.integer_table(probes.TABLE_ROWS, probes.WIDTH, dev)

@@ -73,16 +73,11 @@
 //   warps take q tiles from a shared counter, so a slow tile does not hold
 //   its CTA's other warps idle.
 
-#include <cstdint>
-
-#include "edt_common.cuh"
+#include "edt_staged.cuh"
 
 namespace {
 
 using namespace edt;
-
-constexpr int LINES = 32;       // lines of a block: one per lane
-constexpr int XS = TQ + 1;      // row stride of a warp's output tile (z)
 
 __device__ __forceinline__ float chunk_bound(int q0, int c, float cmin) {
   const int gap_lo = q0 - (c * CH + CH - 1);
@@ -159,13 +154,12 @@ edt_bestfirst_kernel(const float* __restrict__ f,
 // ---------------------------------------------------------------------------
 // Staged variant.
 
-// Shared-memory plan of one CTA, in floats: the staged block (rows
-// [n16][32] with lines contiguous, else lines [32][stride] with stride = 4
-// mod 32 and >= n16), the n_ch chunk minima, then one region per warp that
+// Shared-memory plan of one CTA, in floats: the staged block (BlockGeom of
+// edt_staged.cuh), the n_ch chunk minima, then one region per warp that
 // holds its tile's bounds and, with positions contiguous, afterwards its
 // [TQ][XS] output tile. edt_bestfirst.py::staged_smem_bytes mirrors it.
-struct StagedLayout {
-  int n_ch, n16, stride, block, region;
+struct StagedLayout : BlockGeom {
+  int region;
   __host__ __device__ size_t bytes(int warps) const {
     return sizeof(float) * (static_cast<size_t>(block) + n_ch +
                             static_cast<size_t>(warps) * region);
@@ -175,113 +169,13 @@ struct StagedLayout {
 __host__ __device__ inline StagedLayout staged_layout(int n,
                                                       bool lines_contig) {
   StagedLayout g;
-  g.n_ch = (n + CH - 1) / CH;
-  g.n16 = g.n_ch * CH;
+  static_cast<BlockGeom&>(g) = block_geom(n, lines_contig);
   if (lines_contig) {
-    g.stride = LINES;
-    g.block = g.n16 * LINES;
     g.region = g.n_ch;
   } else {
-    g.stride = g.n16 + (g.n16 % 32 == 0 ? 4 : 20);
-    g.block = LINES * g.stride;
     g.region = g.n_ch > TQ * XS ? g.n_ch : TQ * XS;
   }
   return g;
-}
-
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(s), "l"(gmem) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
-               :: "r"(s), "l"(gmem) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// Threads tid, tid + nt, ... copy a block (nl real lines from fb, line l
-// at fb + l * sL, row k at + k * sK) into fs and fill every entry past the
-// real lines and rows with +inf. `vec`: 16-byte pieces are aligned (strides
-// and base). The copies are in flight until cp_async_wait_all.
-template <bool kLinesContig>
-__device__ __forceinline__ void stage_block(float* fs, const float* fb,
-                                            const StagedLayout& g, int n,
-                                            int nl, long long sK,
-                                            long long sL, bool vec, int tid,
-                                            int nt) {
-  if (kLinesContig) {
-    // fs[k * 32 + l]; a row of 32 lines is 8 pieces of 16 bytes.
-    if (vec && nl == LINES) {
-      for (int p = tid; p < n * 8; p += nt) {
-        const int k = p >> 3;
-        const int j = (p & 7) * 4;
-        cp_async16(fs + k * LINES + j, fb + k * sK + j);
-      }
-    } else {
-      for (int e = tid; e < n * LINES; e += nt) {
-        const int k = e >> 5;
-        const int l = e & 31;
-        if (l < nl) {
-          cp_async4(fs + e, fb + k * sK + l * sL);
-        } else {
-          fs[e] = CUDART_INF_F;
-        }
-      }
-    }
-    for (int e = n * LINES + tid; e < g.n16 * LINES; e += nt) {
-      fs[e] = CUDART_INF_F;
-    }
-  } else {
-    // fs[l * stride + k]; a line is n contiguous floats.
-    const int whole = vec ? n / 4 : 0;  // 16-byte pieces per line
-    for (int p = tid; p < nl * whole; p += nt) {
-      const int l = p / whole;
-      const int j = (p - l * whole) * 4;
-      cp_async16(fs + l * g.stride + j, fb + l * sL + j);
-    }
-    const int rest = n - whole * 4;
-    for (int e = tid; e < nl * rest; e += nt) {
-      const int l = e / rest;
-      const int k = whole * 4 + (e - l * rest);
-      cp_async4(fs + l * g.stride + k, fb + l * sL + k * sK);
-    }
-    const int pad = g.n16 - n;
-    for (int e = tid; e < nl * pad; e += nt) {
-      const int l = e / pad;
-      fs[l * g.stride + n + (e - l * pad)] = CUDART_INF_F;
-    }
-    for (int e = tid; e < (LINES - nl) * g.n16; e += nt) {
-      const int l = nl + e / g.n16;
-      fs[l * g.stride + e % g.n16] = CUDART_INF_F;
-    }
-  }
-}
-
-// This lane's CH rows of the chunk starting at row k0, from the staged block.
-template <bool kLinesContig>
-__device__ __forceinline__ void load_chunk(float (&fk)[CH], const float* fs,
-                                           int stride, int k0, int lane) {
-  if (kLinesContig) {
-#pragma unroll
-    for (int u = 0; u < CH; ++u) fk[u] = fs[(k0 + u) * LINES + lane];
-  } else {
-    const float4* p =
-        reinterpret_cast<const float4*>(fs + lane * stride + k0);
-#pragma unroll
-    for (int i = 0; i < CH / 4; ++i) {
-      const float4 v = p[i];
-      fk[4 * i] = v.x;
-      fk[4 * i + 1] = v.y;
-      fk[4 * i + 2] = v.z;
-      fk[4 * i + 3] = v.w;
-    }
-  }
 }
 
 // An order-preserving map of floats (NaN excluded) to unsigned ints, so a
@@ -293,30 +187,6 @@ __device__ __forceinline__ unsigned order_key(float v) {
 
 __device__ __forceinline__ float key_value(unsigned k) {
   return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
-}
-
-// The chunk's squares from one conversion (the rest are exact adds of small
-// integers): the same values as visit_chunk's squares (edt_common.cuh)
-// without their SQ int-to-float conversions, which issue at an eighth of
-// the FP32 rate.
-__device__ __forceinline__ void staged_squares(float (&sq)[SQ], int q0,
-                                               int k0) {
-  const float base = static_cast<float>(q0 - k0 - (CH - 1));
-#pragma unroll
-  for (int j = 0; j < SQ; ++j) {
-    const float delta = __fadd_rn(base, static_cast<float>(j));
-    sq[j] = __fmul_rn(delta, delta);
-  }
-}
-
-// v[i] = op(v[i], v[i + W]) for i < W, then the same for W / 2, ..., 1:
-// v[0] ends as op over v[0, 2W), in a tree of depth log2(2W). (A loop over
-// W >>= 1 is not unrolled, and its arrays would go to local memory.)
-template <int W, typename Op>
-__device__ __forceinline__ void fold_halves(float* v, Op op) {
-#pragma unroll
-  for (int i = 0; i < W; ++i) v[i] = op(v[i], v[i + W]);
-  if constexpr (W > 1) fold_halves<W / 2>(v, op);
 }
 
 constexpr int QG = 8;  // positions of a group a visit may skip
@@ -451,28 +321,8 @@ __device__ __forceinline__ void staged_tile(const float* fs,
     __syncwarp();
   }
 
-  if (kLinesContig) {
-    // Lane = line: each q row of the tile is one coalesced 128-byte store.
-    if (line_ok) {
-      float* o = ob + lane * oL;
-#pragma unroll
-      for (int q = 0; q < TQ; ++q) {
-        if (q < q_count) o[(q0 + q) * oK] = d[q];
-      }
-    }
-  } else {
-    // Through the region (the bounds are spent): lane = q, one coalesced
-    // 128-byte run of q per line.
-    float* xp = region;
-#pragma unroll
-    for (int q = 0; q < TQ; ++q) xp[q * XS + lane] = d[q];
-    __syncwarp();
-    if (lane < q_count) {
-      float* o = ob + (q0 + lane) * oK;
-      for (int i = 0; i < nl; ++i) o[i * oL] = xp[lane * XS + i];
-    }
-    __syncwarp();
-  }
+  // Through the region (the bounds are spent) in the z layout.
+  store_staged_tile<kLinesContig>(d, region, q0, q_count, nl, ob, oK, oL);
 }
 
 // One CTA per (b, 32-line block): all kWarps warps stage it and form its
@@ -533,10 +383,6 @@ cudaError_t launch_staged(const float* f, float* out, long long B, int n,
   kernel<<<static_cast<unsigned>(B * n_lb), warps * 32, smem, stream>>>(
       f, out, n, L, n_lb, sB, sK, sL, oB, oK, oL, vec);
   return cudaGetLastError();
-}
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
 }  // namespace

@@ -5,8 +5,9 @@
 //   d[b, q, l] = min_k (q - k)^2 + f[b, k, l]
 //
 // on the same layout and tiles; they differ only in which 16-row chunks of k
-// a tile visits and when it stops. (The staged variant of edt_bestfirst.cu
-// takes only the constants below; it has its own layout in shared memory.)
+// a tile visits and when it stops. (The staged variants of edt_bestfirst.cu
+// and edt_envelope.cu take only the constants below; their layout in shared
+// memory is edt_staged.cuh's.)
 //
 // Layout. Grid lines are the contiguous axis: lane i of a warp owns line
 // l = 32 * line_block + i, so every load of one row f[b, k, :] and every store

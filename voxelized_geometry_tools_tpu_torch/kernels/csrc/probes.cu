@@ -2,7 +2,7 @@
 // primitives a fused render march or carve kernel would be built from.
 //
 // Replaces the four TPU probe kernels of benchmarks/inkernel_microbench.py:
-//   vmem_gather_kernel          <- _vmem_gather_kernel (vmem_gather_bench)
+//   vmem_gather_split_kernel    <- _vmem_gather_kernel (vmem_gather_bench)
 //   vmem_scatter_cluster_kernel <- _vmem_scatter_kernel (vmem_scatter_bench)
 //   hbm_dma_kernel<DEPTH>       <- _hbm_dma_kernel (hbm_dma_bench)
 //   vmem_batch_march_kernel     <- _vmem_batch_march_kernel
@@ -19,11 +19,22 @@
 // a thread jumps to its own share of the sequence.
 //
 // What bounds each on the H100, and the design:
-// * gather / march keep the TPU's VMEM table in one block's dynamic shared
-//   memory (opt-in above 48 KiB, refused past the device's 227 KiB); one
-//   thread owns one column (gather) or one ray (march), so a row access is
-//   one conflict-free wavefront, bounded by its latency chain and the
-//   index arithmetic.
+// * gather spreads one replica's sequence over `ctas` CTAs of 1,024
+//   threads (probes.gather_plan: one CTA an SM for one replica, divided
+//   among the replicas), each with its own copy of the table in dynamic
+//   shared memory (opt-in above 48 KiB, refused past the device's 227 KiB),
+//   staged with cp.async in 16-byte pieces. A row group of threads takes
+//   a contiguous share of the sequence and sums it in order, each thread
+//   two 16-byte pieces of a row (one thread a row at width 8; one float a
+//   thread where the width is not a multiple of 8); groups, then CTAs (the
+//   last to arrive), are summed in a fixed order, so every launch gives
+//   the same bits. Bound:
+//   the rows' shared-memory wavefronts (128 bytes a clock an SM, up to
+//   about twice that many for random rows' bank conflicts) with many
+//   replicas; the launch, the stage and the two reductions with one.
+// * march keeps the table in one block's shared memory, one thread a ray,
+//   so a row access is one conflict-free wavefront, bounded by its latency
+//   chain and the index arithmetic.
 // * scatter spreads one replica over a thread block cluster of 8 CTAs (the
 //   portable size; probes.scatter_plan): each CTA owns a contiguous slice
 //   of the accumulator's rows in its shared memory. Thread t of the
@@ -46,6 +57,7 @@
 //   order (threadfence + arrival counter): the same bits on every run.
 //   Bound: the rows' bytes at the HBM rate.
 
+#include <algorithm>
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -59,6 +71,8 @@ constexpr uint32_t kLcgC = 1013904223u;
 constexpr int kScatterThreads = 1024;
 constexpr int kScatterCluster = 8;
 constexpr int kDmaWarps = 16;
+constexpr int kGatherThreads = 1024;
+constexpr uint32_t kBulkChunk = 16384;  // bytes of one bulk copy
 
 __device__ __forceinline__ uint32_t lcg_next(uint32_t s) {
   return s * kLcgA + kLcgC;
@@ -84,24 +98,6 @@ __device__ __forceinline__ void copy_to_shared(float* dst,
 }
 
 __global__ void empty_kernel() {}
-
-__global__ void vmem_gather_kernel(const float* __restrict__ table,
-                                   float* __restrict__ out, uint32_t n_rows,
-                                   int width, long long n_iters,
-                                   uint32_t seed) {
-  extern __shared__ float tab[];
-  copy_to_shared(tab, table, static_cast<int>(n_rows) * width);
-  __syncthreads();
-  const int w = threadIdx.x;
-  if (w >= width) return;
-  uint32_t s = seed + blockIdx.x;
-  float acc = 0.0f;
-  for (long long i = 0; i < n_iters; ++i) {
-    s = lcg_next(s);
-    acc += tab[lcg_row(s, n_rows) * width + w];
-  }
-  out[static_cast<size_t>(blockIdx.x) * width + w] = acc;
-}
 
 struct ScatterArgs {
   long long n_iters;
@@ -227,6 +223,217 @@ __device__ __forceinline__ void add4(float4& a, const float4& b) {
   a.y += b.y;
   a.z += b.z;
   a.w += b.w;
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(s), "l"(gmem) : "memory");
+}
+
+// atomicAdd(counter, 1) with acquire-release semantics at device scope;
+// returns the old count.
+__device__ __forceinline__ unsigned arrive_acq_rel(unsigned* counter) {
+  unsigned old;
+  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;\n"
+               : "=r"(old) : "l"(counter) : "memory");
+  return old;
+}
+
+__device__ __forceinline__ void add_to(float& a, float b) { a += b; }
+__device__ __forceinline__ void add_to(float4& a, const float4& b) {
+  add4(a, b);
+}
+
+__device__ __forceinline__ float shfl_xor(float v, int o) {
+  return __shfl_xor_sync(0xffffffffu, v, o);
+}
+
+__device__ __forceinline__ float4 shfl_xor(const float4& v, int o) {
+  return make_float4(shfl_xor(v.x, o), shfl_xor(v.y, o), shfl_xor(v.z, o),
+                     shfl_xor(v.w, o));
+}
+
+// x summed over the row groups of a warp whose groups span `group` lanes
+// (a power of two up to 32) by a fixed tree: lane l adds lane l ^ o at o =
+// 16, 8, ..., group, so the warp's first group ends with the warp's sum.
+template <typename T>
+__device__ __forceinline__ T warp_tree(T x, uint32_t group) {
+  for (uint32_t o = 16; o >= group; o >>= 1) add_to(x, shfl_xor(x, o));
+  return x;
+}
+
+// buf holds `count` rows of `pieces` T; a fixed tree leaves their sum in
+// row 0: row g += row g + h for g < min(h, count - h), at h = top / 2, ...,
+// 1 (top the least power of two >= count), each level's rows [0, h) then
+// taking the place of the count. Barriers before every level and after
+// the last, so every thread of the block must call it.
+template <typename T>
+__device__ void tree_sum(T* buf, uint32_t count, uint32_t pieces) {
+  for (uint32_t h = count > 1 ? 1u << (31 - __clz(count - 1)) : 0u; h > 0;
+       h >>= 1) {
+    __syncthreads();
+    const uint32_t m = min(h, count - h) * pieces;
+    for (uint32_t e = threadIdx.x; e < m; e += blockDim.x) {
+      add_to(buf[e], buf[e + h * pieces]);
+    }
+    count = h;
+  }
+  __syncthreads();
+}
+
+struct GatherArgs {
+  uint32_t n_rows, rows_m, rows_shift;  // n_rows and its magic pair
+  uint32_t width, pieces;               // floats and T pieces of a row
+  uint32_t group, groups;               // threads a row group, groups a CTA
+  uint32_t ctas;                        // CTAs a replica
+  uint32_t seed;
+  bool bulk;  // the table staged by bulk copies, else by 4-byte cp.async
+};
+
+// `ctas` CTAs of kGatherThreads threads per replica, each with its own copy
+// of the table in shared memory. Thread t is piece column (t % group) * V
+// of row group t / group (threads past `groups` groups idle); group g of
+// CTA c takes the iterations of shares[c * groups + g] = (a, c, lo, rows):
+// its first state is a * (seed + replica) + c, and it sums its `rows` rows
+// in order, V pieces of type T a thread. The CTA's groups are summed by a
+// fixed tree in the table's memory; with several CTAs a replica, the last
+// CTA to arrive (acquire-release arrival counter, back at 0 when it ends)
+// sums their partials: set k of its threads sums CTAs k, k + sets, ... in
+// order, and a fixed tree the sets. The same bits on every launch.
+template <typename T, int V>
+__global__ void __launch_bounds__(kGatherThreads)
+vmem_gather_split_kernel(const float* __restrict__ table,
+                         float* __restrict__ out, T* __restrict__ partials,
+                         unsigned* __restrict__ arrivals,
+                         const uint4* __restrict__ shares, GatherArgs args) {
+  extern __shared__ float4 smem4[];
+  __shared__ bool last;
+  __shared__ __align__(8) uint64_t stage_bar;
+  const uint32_t replica = blockIdx.x / args.ctas;
+  const uint32_t cta = blockIdx.x - replica * args.ctas;
+  const uint32_t count = args.n_rows * args.width;
+  const uint32_t bar =
+      static_cast<uint32_t>(__cvta_generic_to_shared(&stage_bar));
+  if (args.bulk) {
+    if (threadIdx.x == 0) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                   :: "r"(bar) : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      const uint32_t bytes = count * 4;
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                   :: "r"(bar), "r"(bytes) : "memory");
+      const uint32_t dst =
+          static_cast<uint32_t>(__cvta_generic_to_shared(smem4));
+      const char* src = reinterpret_cast<const char*>(table);
+      for (uint32_t off = 0; off < bytes; off += kBulkChunk) {
+        const uint32_t n = min(kBulkChunk, bytes - off);
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+            " [%0], [%1], %2, [%3];\n"
+            :: "r"(dst + off), "l"(src + off), "r"(n), "r"(bar) : "memory");
+      }
+    }
+  } else {
+    float* tab = reinterpret_cast<float*>(smem4);
+    for (uint32_t i = threadIdx.x; i < count; i += blockDim.x) {
+      cp_async4(tab + i, table + i);
+    }
+  }
+  const uint32_t g = threadIdx.x / args.group;
+  const uint32_t c0 = (threadIdx.x - g * args.group) * V;
+  uint32_t s = 0u;
+  uint32_t rows = 0u;
+  if (g < args.groups) {
+    const uint4 share = shares[cta * args.groups + g];
+    s = share.x * (args.seed + replica) + share.y;
+    rows = share.w;
+  }
+  T acc[V] = {};
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  if (args.bulk) {
+    asm volatile(
+        "{\n .reg .pred p;\n WAIT_%=:\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], 0;\n"
+        " @!p bra WAIT_%=;\n}\n" :: "r"(bar) : "memory");
+  }
+
+  const T* tab = reinterpret_cast<const T*>(smem4) + c0;
+#pragma unroll 2
+  for (uint32_t i = 0; i < rows; ++i) {
+    const uint32_t a = (s & 0x80000000u) ? 0u - s : s;
+    const uint32_t row =
+        a - magic_div(a, args.rows_m, args.rows_shift) * args.n_rows;
+    const T* r = tab + row * args.pieces;
+#pragma unroll
+    for (int v = 0; v < V; ++v) add_to(acc[v], r[v]);
+    s = lcg_next(s);
+  }
+
+  // The CTA's groups: by warp-shuffle trees and a tree over the warps where
+  // a group spans a power of two of lanes up to 32, else by a tree over the
+  // groups; the table's memory is the trees' scratch once every row is read.
+  T* buf = reinterpret_cast<T*>(smem4);
+  const uint32_t warp = threadIdx.x >> 5;
+  const uint32_t lane = threadIdx.x & 31;
+  __syncthreads();
+  if (32 % args.group == 0) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[v] = warp_tree(acc[v], args.group);
+    if (lane < args.group) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) buf[warp * args.pieces + c0 + v] = acc[v];
+    }
+    tree_sum(buf, kGatherThreads / 32, args.pieces);
+  } else {
+    if (g < args.groups) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) buf[g * args.pieces + c0 + v] = acc[v];
+    }
+    tree_sum(buf, args.groups, args.pieces);
+  }
+  T* dst = reinterpret_cast<T*>(out) + replica * args.pieces;
+  if (args.ctas == 1) {
+    if (threadIdx.x < args.pieces) dst[threadIdx.x] = buf[threadIdx.x];
+    return;
+  }
+  // The CTA's partial, then one acquire-release arrival by thread 0 after
+  // the barrier: it publishes the CTA's stores and, in the last CTA, makes
+  // every CTA's partial visible to the threads past the next barrier.
+  if (threadIdx.x < args.pieces) {
+    partials[blockIdx.x * args.pieces + threadIdx.x] = buf[threadIdx.x];
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) last = arrive_acq_rel(arrivals + replica) ==
+                               args.ctas - 1;
+  __syncthreads();
+  if (!last) return;
+  // Set k of the last CTA's threads (a set spans `pieces` threads) sums
+  // CTAs k, k + sets, ... in order; the sets are summed as the groups were.
+  const bool by_warp = 32 % args.pieces == 0;
+  const uint32_t sets = by_warp ? kGatherThreads / args.pieces
+                                : min(kGatherThreads / args.pieces, args.ctas);
+  const uint32_t k = threadIdx.x / args.pieces;
+  const uint32_t p = threadIdx.x - k * args.pieces;
+  T v = {};
+  if (k < sets) {
+    const T* rep = partials + replica * args.ctas * args.pieces + p;
+    for (uint32_t c = k; c < args.ctas; c += sets) {
+      add_to(v, __ldcg(rep + c * args.pieces));
+    }
+  }
+  if (by_warp) {
+    v = warp_tree(v, args.pieces);
+    if (lane < args.pieces) buf[warp * args.pieces + lane] = v;
+    tree_sum(buf, kGatherThreads / 32, args.pieces);
+  } else {
+    if (k < sets) buf[k * args.pieces + p] = v;
+    tree_sum(buf, sets, args.pieces);
+  }
+  if (threadIdx.x < args.pieces) dst[threadIdx.x] = buf[threadIdx.x];
+  if (threadIdx.x == 0) arrivals[replica] = 0u;
 }
 
 // kDmaWarps warps per CTA, `ctas` CTAs per replica. Warp w of CTA c reads
@@ -355,11 +562,6 @@ __global__ void vmem_batch_march_kernel(const float* __restrict__ table,
   out[static_cast<size_t>(blockIdx.x) * batch + j] = t;
 }
 
-int threads_for(int width) {
-  const int warps = (width + 31) / 32;
-  return warps * 32 < 256 ? 256 : warps * 32;
-}
-
 cudaError_t opt_in_shared(const void* kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -418,11 +620,13 @@ int probes_max_shared_bytes(int device) {
   return v;
 }
 
-// The scatter kernel's threads and CTAs per cluster and the DMA kernel's
-// warps per CTA, which the wrapper's plans must use.
+// The scatter kernel's threads and CTAs per cluster, the DMA kernel's warps
+// per CTA and the gather kernel's threads per CTA, which the wrapper's
+// plans must use.
 int probes_scatter_threads() { return kScatterThreads; }
 int probes_scatter_cluster() { return kScatterCluster; }
 int probes_dma_warps() { return kDmaWarps; }
+int probes_gather_threads() { return kGatherThreads; }
 
 // Clusters of the scatter kernel with `smem` bytes of shared memory a CTA
 // that the device can hold at once (cudaOccupancyMaxActiveClusters); -1 on
@@ -456,18 +660,62 @@ int probe_empty_launch(int device, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-int probe_vmem_gather_launch(const float* table, float* out, int n_rows,
-                             int width, long long n_iters, int seed,
-                             int replicas, int device, void* stream) {
+// shares: ctas * groups uint4 (a, c, lo, rows) of one replica; partials:
+// replicas * ctas * width floats; arrivals: replicas zeroed counters; vec:
+// 2 (two float4s a thread; width a multiple of 8) or 0 (one float);
+// (rows_m, rows_shift) the magic pair of n_rows.
+int probe_vmem_gather_launch(const float* table, float* out, float* partials,
+                             unsigned* arrivals, const void* shares,
+                             int n_rows, int width, int vec, int group,
+                             int groups, int ctas, unsigned rows_m,
+                             unsigned rows_shift, int seed, int replicas,
+                             int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = static_cast<size_t>(n_rows) * width * sizeof(float);
-  err = opt_in_shared(reinterpret_cast<const void*>(vmem_gather_kernel), smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  vmem_gather_kernel<<<replicas, threads_for(width), smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      table, out, static_cast<uint32_t>(n_rows), width, n_iters,
-      static_cast<uint32_t>(seed));
+  const uint32_t pieces = vec ? width / 4 : width;
+  if ((vec != 0 && vec != 2) || (vec && width % 8) ||
+      group * (vec ? vec : 1) != pieces || groups != kGatherThreads / group) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  GatherArgs args;
+  args.n_rows = static_cast<uint32_t>(n_rows);
+  args.rows_m = rows_m;
+  args.rows_shift = rows_shift;
+  args.width = static_cast<uint32_t>(width);
+  args.pieces = pieces;
+  args.group = static_cast<uint32_t>(group);
+  args.groups = static_cast<uint32_t>(groups);
+  args.ctas = static_cast<uint32_t>(ctas);
+  args.seed = static_cast<uint32_t>(seed);
+  const size_t table_bytes = static_cast<size_t>(n_rows) * width * 4;
+  args.bulk = table_bytes % 16 == 0 &&
+              (reinterpret_cast<uintptr_t>(table) & 15) == 0;
+  // The table, or the scratch of either tree if that is larger.
+  const size_t piece = vec ? 16 : 4;
+  const uint32_t sets =
+      std::min(static_cast<uint32_t>(kGatherThreads) / pieces, args.ctas);
+  const size_t smem = std::max({(table_bytes + 15) / 16 * 16,
+                                static_cast<size_t>(groups) * width * 4,
+                                static_cast<size_t>(sets) * pieces * piece});
+  const auto* sh = static_cast<const uint4*>(shares);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(static_cast<unsigned>(replicas) * args.ctas);
+  switch (vec) {
+#define PROBE_GATHER_CASE(VEC, T, V) \
+    case VEC: { \
+      const auto kernel = vmem_gather_split_kernel<T, V>; \
+      err = opt_in_shared(reinterpret_cast<const void*>(kernel), smem); \
+      if (err != cudaSuccess) return static_cast<int>(err); \
+      kernel<<<grid, kGatherThreads, smem, st>>>( \
+          table, out, reinterpret_cast<T*>(partials), arrivals, sh, args); \
+      break; \
+    }
+    PROBE_GATHER_CASE(0, float, 1)
+    PROBE_GATHER_CASE(2, float4, 2)
+#undef PROBE_GATHER_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

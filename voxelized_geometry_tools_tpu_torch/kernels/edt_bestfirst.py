@@ -168,18 +168,25 @@ def staged_smem_bytes(n: int, lines_contiguous: bool, warps: int) -> int:
     return 4 * (block + n_ch + warps * region)
 
 
-def staged_warps(n: int, lines_contiguous: bool) -> int:
-    """Warps per CTA of the staged kernel for an axis of ``n``, or 0 where
-    its block does not fit (the global variant runs). At most 128 registers
-    a thread let 16 warps fill an SM: 8 per CTA where two CTAs fit an SM's
-    shared memory (one stages while the other computes), else 16, else 8."""
-    if 2 * (staged_smem_bytes(n, lines_contiguous, 8)
-            + SMEM_BLOCK_RESERVED) <= SMEM_SM:
+def fit_warps(smem_bytes) -> int:
+    """Warps per CTA of a staged kernel whose CTA of ``w`` warps takes
+    ``smem_bytes(w)`` bytes of shared memory, or 0 where none fits. At most
+    128 registers a thread let 16 warps fill an SM: 8 per CTA where two
+    CTAs fit an SM's shared memory (one stages while the other computes),
+    else 16, else 8."""
+    if 2 * (smem_bytes(8) + SMEM_BLOCK_RESERVED) <= SMEM_SM:
         return 8
     for warps in (16, 8):
-        if staged_smem_bytes(n, lines_contiguous, warps) <= SMEM_BLOCK_LIMIT:
+        if smem_bytes(warps) <= SMEM_BLOCK_LIMIT:
             return warps
     return 0
+
+
+def staged_warps(n: int, lines_contiguous: bool) -> int:
+    """Warps per CTA of the staged kernel for an axis of ``n``, or 0 where
+    its block does not fit (the global variant runs): :func:`fit_warps` of
+    :func:`staged_smem_bytes`."""
+    return fit_warps(lambda w: staged_smem_bytes(n, lines_contiguous, w))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -17,10 +17,10 @@ Row indices come from :func:`lcg_indices`, the TPU kernels' generator. Each
 function takes ``replicas``: replica ``r`` runs the probe with seed
 ``seed + r`` into row ``r`` of the output, so ``replicas=1`` computes
 exactly the TPU kernel's result and more replicas measure the whole card.
-On the card the gather and march probes run one block per replica; the
-scatter runs one thread block cluster per replica (:func:`scatter_plan`),
-and the device-memory gather spreads each replica's rows over many CTAs
-(:func:`dma_plan`); both jump ahead in the LCG (:func:`lcg_jump`). On a
+On the card the march probe runs one block per replica; the scatter runs
+one thread block cluster per replica (:func:`scatter_plan`), and both
+gathers spread each replica's rows over many CTAs (:func:`gather_plan`,
+:func:`dma_plan`); all three jump ahead in the LCG (:func:`lcg_jump`). On a
 CUDA tensor a wrapper launches its kernel (building it at first use) or
 raises; on a CPU tensor it runs the plain version. With integer-valued
 tables every sum is exact, so kernels, plain versions and the JAX kernels
@@ -67,6 +67,8 @@ DMA_MAX_DEPTH = 16
 SCATTER_THREADS = 1024
 SCATTER_CLUSTER = 8
 DMA_WARPS = 16
+# The shared-memory gather kernel's threads per CTA (checked as those are).
+GATHER_THREADS = 1024
 # Seeds of successive timed launches lie this far apart (more than any
 # replica count), so each launch of the device-memory probe reads rows the
 # launches before it mostly did not, and finds them cold in L2.
@@ -302,6 +304,59 @@ def dma_plan(n_iters: int, depth: int, replicas: int,
     return DmaPlan(ctas, lo, shares)
 
 
+@dataclasses.dataclass(frozen=True)
+class GatherPlan:
+    """One replica's ``n_iters`` rows over ``ctas`` CTAs of
+    ``GATHER_THREADS`` threads, each CTA holding the table in its shared
+    memory. A row group of ``group`` threads takes one row a step, each
+    thread ``vec`` float4 pieces of it (2, for a width that is a multiple
+    of 8; 0: one float); a CTA has ``groups`` groups. ``shares[k] = (a, c,
+    lo, rows)`` for group ``k = cta * groups + g``: its first state is ``a *
+    seed + c`` (mod 2^32), and it sums the ``rows`` iterations from ``lo``
+    on, in order."""
+    vec: int
+    group: int
+    groups: int
+    ctas: int
+    shares: np.ndarray
+
+    @property
+    def pieces(self) -> int:
+        """Pieces of a row: float4s, or floats where ``vec`` is 0."""
+        return self.group * max(self.vec, 1)
+
+
+def gather_plan(n_iters: int, width: int, replicas: int, sm_count: int,
+                ctas: int | None = None) -> GatherPlan:
+    """Splits each replica's sequence into contiguous, balanced shares over
+    the row groups of ``ctas`` CTAs: by default one CTA for every two SMs
+    for one replica (on an H100 the one-replica probe ran fastest there:
+    fewer CTAs pay less stage and reduction, more share the rows), divided
+    among the replicas, and no more CTAs than give every group a row. A
+    thread takes two float4s of a row where the width is a
+    multiple of 8 (the whole corner row of width 8), else one float."""
+    if width % 8 == 0:
+        vec, pieces = 2, width // 4
+    else:
+        vec, pieces = 0, width
+    group = pieces // max(vec, 1)
+    if not 1 <= group <= GATHER_THREADS:
+        raise ValueError(f"width {width} outside [1, {MAX_THREADS}]")
+    groups = GATHER_THREADS // group
+    if ctas is None:
+        ctas = max(1, min(sm_count // (2 * replicas),
+                          -(-n_iters // groups)))
+    if ctas < 1:
+        raise ValueError(f"ctas={ctas} must be at least 1")
+    total = ctas * groups
+    bounds = np.arange(total + 1, dtype=np.int64) * n_iters // total
+    lo, rows = bounds[:-1], np.diff(bounds)
+    a, c = lcg_jump(lo + 1)
+    shares = np.stack([a, c, lo.astype(np.uint32), rows.astype(np.uint32)],
+                      axis=1)
+    return GatherPlan(vec, group, groups, ctas, shares)
+
+
 # -- Kernels ------------------------------------------------------------------
 
 
@@ -312,7 +367,8 @@ def _library():
     lib.probes_max_shared_bytes.restype = ctypes.c_int
     for fn, want in ((lib.probes_scatter_threads, SCATTER_THREADS),
                      (lib.probes_scatter_cluster, SCATTER_CLUSTER),
-                     (lib.probes_dma_warps, DMA_WARPS)):
+                     (lib.probes_dma_warps, DMA_WARPS),
+                     (lib.probes_gather_threads, GATHER_THREADS)):
         fn.argtypes = []
         fn.restype = ctypes.c_int
         if fn() != want:
@@ -325,8 +381,8 @@ def _library():
     # replicas, device, stream
     tail = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.probe_vmem_gather_launch.argtypes = (
-        [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_int,
-                                 ctypes.c_longlong, ctypes.c_int] + tail)
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+        + [ctypes.c_uint32] * 2 + [ctypes.c_int] + tail)
     lib.probe_vmem_scatter_launch.argtypes = (
         [ctypes.c_void_p] * 3
         + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
@@ -388,12 +444,24 @@ def _dma_shares(n_iters: int, depth: int, replicas: int,
 
 
 @functools.lru_cache(maxsize=64)
-def _dma_scratch(replicas: int, ctas: int, width: int, device: torch.device,
-                 stream: int):
-    """The device-memory kernel's scratch for launches on one stream: the
-    CTAs' partial sums, which each launch writes before it reads them, and
-    the arrival counters, zeroed once and left at 0 again by each launch.
-    Launches on one stream do not overlap, so they share it."""
+def _gather_shares(n_iters: int, width: int, replicas: int, ctas,
+                   device: torch.device):
+    """The :func:`gather_plan` of a launch and its shares as int32 on
+    ``device`` (made once per shape and device)."""
+    plan = gather_plan(n_iters, width, replicas,
+                       torch.cuda.get_device_properties(device)
+                       .multi_processor_count, ctas)
+    return plan, torch.from_numpy(plan.shares.view(np.int32)).to(device)
+
+
+@functools.lru_cache(maxsize=64)
+def _split_scratch(replicas: int, ctas: int, width: int,
+                   device: torch.device, stream: int):
+    """The scratch of the kernels that split a replica over CTAs (both
+    gathers) for launches on one stream: the CTAs' partial sums, which each
+    launch writes before it reads them, and the arrival counters, zeroed
+    once and left at 0 again by each launch. Launches on one stream do not
+    overlap, so they share it."""
     return (torch.empty(replicas * ctas * width, dtype=torch.float32,
                         device=device),
             torch.zeros(replicas, dtype=torch.int32, device=device))
@@ -453,21 +521,40 @@ def _launch(name: str, fn, *args, device, stream=None) -> None:
 def vmem_gather(table: Tensor, n_iters: int, replicas: int = 1,
                 seed: int = GATHER_SEED) -> Tensor:
     """:func:`vmem_gather_plain` of a ``[n_rows, width]`` float32 table, by
-    the kernel on a CUDA tensor (the table in shared memory)."""
+    the kernel on a CUDA tensor: each replica's rows split over the CTAs of
+    :func:`gather_plan`, each CTA with the table in its shared memory, the
+    sums reduced in a fixed order (the same bits on every run)."""
     if table.device.type == "cpu":
         return vmem_gather_plain(table, n_iters, replicas, seed)
+    return vmem_gather_split(table, n_iters, None, replicas, seed)
+
+
+def vmem_gather_split(table: Tensor, n_iters: int, ctas: int | None,
+                      replicas: int = 1, seed: int = GATHER_SEED) -> Tensor:
+    """:func:`vmem_gather` on a CUDA tensor with ``ctas`` CTAs a replica
+    (``None``: :func:`gather_plan`'s choice), for timing the split."""
+    if table.device.type != "cuda":
+        raise ValueError(f"unsupported device {table.device}")
     _check_input(table, "table", 2)
     _check_replicas(replicas)
     n_rows, width = table.shape
     if width > MAX_THREADS:
         raise ValueError(f"width {width} above {MAX_THREADS}")
-    _check_shared(n_rows, width, table.device, "the table")
+    if n_iters >= 2 ** 31:
+        raise ValueError(f"{n_iters} iterations above the int32 range")
+    dev = table.device
+    _check_shared(n_rows, width, dev, "the table")
     _check_sequences(seed, replicas, n_iters)
-    out = torch.empty(replicas, width, dtype=torch.float32,
-                      device=table.device)
+    plan, shares = _gather_shares(n_iters, width, replicas, ctas, dev)
+    stream = _stream(dev)
+    partials, arrivals = _split_scratch(replicas, plan.ctas, width, dev,
+                                        stream)
+    out = torch.empty(replicas, width, dtype=torch.float32, device=dev)
     _launch("vmem_gather", _library().probe_vmem_gather_launch,
-            table.data_ptr(), out.data_ptr(), n_rows, width, n_iters, seed,
-            replicas, device=table.device)
+            table.data_ptr(), out.data_ptr(), partials.data_ptr(),
+            arrivals.data_ptr(), shares.data_ptr(), n_rows, width, plan.vec,
+            plan.group, plan.groups, plan.ctas, *magic_divisor(n_rows), seed,
+            replicas, device=dev, stream=stream)
     return out
 
 
@@ -519,7 +606,8 @@ def hbm_dma(table: Tensor, n_iters: int, depth: int, replicas: int = 1,
     dev = table.device
     plan, shares = _dma_shares(n_iters, depth, replicas, dev)
     stream = _stream(dev)
-    partials, arrivals = _dma_scratch(replicas, plan.ctas, width, dev, stream)
+    partials, arrivals = _split_scratch(replicas, plan.ctas, width, dev,
+                                        stream)
     out = torch.empty(replicas, width, dtype=torch.float32, device=dev)
     _launch("hbm_dma", _library().probe_hbm_dma_launch, table.data_ptr(),
             out.data_ptr(), partials.data_ptr(), arrivals.data_ptr(),
@@ -578,6 +666,9 @@ ACC_ROWS = (2048, 4096, 8192)
 WIDE_ACC_ROWS = 2048
 DMA_ROWS, DMA_WIDTH, DMA_ITERS = 1 << 20, 128, 20_000
 DMA_DEPTHS = (2, 8, 16)
+# CTAs a replica of the one-replica gather's sweep (gather_plan takes 66 on a
+# 132-SM card).
+GATHER_CTA_SWEEP = (132, 98, 66, 33, 16, 8, 1)
 MARCH_STEPS = 64
 MARCH_BATCHES = (64, 256)
 
@@ -656,8 +747,10 @@ def main() -> dict:
     ray-step for the march), timed by :func:`queued_ms`; the full-card
     numbers are the aggregate time per row over all replicas. Each timed
     launch of the device-memory probe reads a fresh row sequence.
-    ``launch_floor_ms`` is the empty kernel's time and ``fixed_ms`` what a
-    scatter or device-memory gather launch costs besides its rows. Prints
+    ``launch_floor_ms`` is the empty kernel's time, ``fixed_ms`` what a
+    scatter or gather launch costs besides its rows, and
+    ``vmem_gather_cta_sweep_ms`` the one-replica gather's time by CTAs a
+    replica. Prints
     the dict as one JSON line and returns it."""
     if not torch.cuda.is_available():
         raise SystemExit("probes: no CUDA device; the probes run only on a "
@@ -709,17 +802,37 @@ def main() -> dict:
             out[f"march_step_ns_per_ray_batch{batch}"] = (
                 ms * 1e6 / (MARCH_STEPS * batch * reps))
     results["full_card"] = full
+    # The one-replica gather with fewer CTAs: less staging and a shorter
+    # reduction against fewer threads on the rows.
+    results["vmem_gather_cta_sweep_ms"] = {
+        str(ctas): queued_ms(lambda: vmem_gather_split(table, GATHER_ITERS,
+                                                       ctas))
+        for ctas in GATHER_CTA_SWEEP}
     # What a launch costs besides its rows, at one replica: the scatter with
-    # one iteration (cluster launch, zeroing, both barriers, write-out), and
-    # the device-memory gather over the card with one row a warp (launch,
-    # one row's latency, the fixed-order reduction over every CTA).
+    # one iteration (cluster launch, zeroing, both barriers, write-out), the
+    # device-memory gather over the card with one row a warp (launch, one
+    # row's latency, the fixed-order reduction over every CTA), and the
+    # shared-memory gather over its plan's CTAs with one row a thread
+    # (launch, the table's stage, both fixed-order reductions), then the
+    # gather with no rows: over the plan's CTAs, and, with a 64-row table
+    # that costs no stage, over them and over one CTA.
     one_row = replicas_full * DMA_WARPS
+    ctas = gather_plan(GATHER_ITERS, WIDTH, 1, replicas_full).ctas
+    tiny = integer_table(64, WIDTH, dev)
     seeds = fresh_seeds(DMA_SEED + 1, TIMED_CALLS + 2, 1, one_row)
     results["fixed_ms"] = {
         "vmem_scatter_4096_one_iteration": queued_ms(
             lambda: vmem_scatter(mask, 1, 4096)),
         "hbm_dma_depth8_one_row_a_warp": queued_ms(
-            lambda: hbm_dma(big, one_row, 8, 1, next(seeds)))}
+            lambda: hbm_dma(big, one_row, 8, 1, next(seeds))),
+        "vmem_gather_one_row_a_thread": queued_ms(
+            lambda: vmem_gather(table, GATHER_THREADS * ctas)),
+        "vmem_gather_no_rows": queued_ms(
+            lambda: vmem_gather_split(table, 0, ctas)),
+        "vmem_gather_no_rows_64_row_table": queued_ms(
+            lambda: vmem_gather_split(tiny, 0, ctas)),
+        "vmem_gather_no_rows_64_row_table_one_cta": queued_ms(
+            lambda: vmem_gather_split(tiny, 0, 1))}
     print(json.dumps(results), flush=True)
     return results
 
