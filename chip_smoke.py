@@ -8,9 +8,11 @@ drives the main path at full size (512^3 two-field EDT -> corner table ->
 640x480 sphere-traced renders, the scene and camera of bench.py) and the
 differentiable ``entry()``, checking every result. Then it drives every
 other EDT backend through the same 512^3 EDT (the full sweep's staged
-variant with its times against the sweep's own floor), the best-first
-kernel's and the full sweep's global variants through an EDT whose axes are
-too long for the staged ones,
+variant with its times against the sweep's own floor, the windowed walk's
+staged variant with its walk count), the best-first kernel's clustered
+variant and the full sweep's and the windowed walk's global variants
+through an EDT whose axes are too long for the staged ones, the best-first
+kernel's global variant through an axis beyond a cluster's reach,
 the large-grid path (a 1024^3 signed EDT that takes the slab-streamed
 pipeline on its own, and a render from it without a corner table), the
 primitive-rate probes' entry point (``kernels.probes.main``, the
@@ -48,28 +50,38 @@ LARGE_N = 1024
 CSRC = "voxelized_geometry_tools_tpu_torch/kernels/csrc/"
 PALLAS = "voxelized_geometry_tools_tpu/kernels/edt_pallas.py:"
 # Each kernel of the port: (source, the TPU kernel it replaces). The
-# best-first source holds three: the staged variant (either hoist_cmin,
-# every axis whose 32-line block fits shared memory: the main path's) and
-# the global variant with hoisted and with in-kernel chunk minima. The
-# full-sweep source holds two: the staged variant and, for longer axes, the
-# global one.
+# best-first source holds four: the staged variant (either hoist_cmin,
+# every axis whose 32-line block fits shared memory: the main path's), the
+# clustered variant (either hoist_cmin, longer axes up to a cluster's
+# reach: the redesign of the in-kernel-minima kernel for them) and the
+# global variant with hoisted and with in-kernel chunk minima. The
+# full-sweep and the windowed sources hold two each: the staged variant
+# and, for longer axes, the global one.
 KERNELS = {
     "edt_bestfirst_staged": (CSRC + "edt_bestfirst.cu", PALLAS + "301"),
+    "edt_bestfirst_cluster": (CSRC + "edt_bestfirst.cu", PALLAS + "241"),
     "edt_bestfirst": (CSRC + "edt_bestfirst.cu", PALLAS + "301"),
     "edt_bestfirst_inkernel": (CSRC + "edt_bestfirst.cu", PALLAS + "241"),
     "edt_envelope_staged": (CSRC + "edt_envelope.cu", PALLAS + "111"),
     "edt_envelope_global": (CSRC + "edt_envelope.cu", PALLAS + "111"),
-    "edt_windowed": (CSRC + "edt_windowed.cu", PALLAS + "161"),
+    "edt_windowed_staged": (CSRC + "edt_windowed.cu", PALLAS + "161"),
+    "edt_windowed_global": (CSRC + "edt_windowed.cu", PALLAS + "161"),
 }
 # The 512^3 signed EDT through each kernel backend: (backend, hoist_cmin,
 # the kernel that must run it).
 SWEEP = (("cuda-bestfirst", True, "edt_bestfirst_staged"),
          ("cuda-bestfirst", False, "edt_bestfirst_staged"),
          ("cuda-envelope", True, "edt_envelope_staged"),
-         ("cuda-windowed", True, "edt_windowed"))
-# An axis too long for the staged block: the global variant's EDT grid is
-# [GLOBAL_X, GLOBAL_N, GLOBAL_N].
+         ("cuda-windowed", True, "edt_windowed_staged"))
+# An axis too long for the staged blocks: the clustered and global
+# variants' EDT grid is [GLOBAL_X, GLOBAL_N, GLOBAL_N].
 GLOBAL_N, GLOBAL_X = 2048, 4
+# An axis beyond an 8-CTA cluster's reach: the best-first kernel's global
+# variant takes the z pass of an EDT of this grid.
+LONG_SHAPE = (4, 16, 12_800)
+# Cluster sizes the clustered variant is also forced to in the
+# kernel-vs-plain cases (besides its plan's).
+FORCED_CLUSTERS = (4, 8)
 # Envelope-kernel cases: axis lengths, the last only for the global variants.
 ENVELOPE_NS = (37, 300, 512, 513, 1024, GLOBAL_N)
 # H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM bytes/s, float32
@@ -156,39 +168,49 @@ def kernel_fns():
     eb, ee, ew = kernel_modules()
     return {
         "edt_bestfirst_staged": eb.parabolic_envelope_last_staged,
+        "edt_bestfirst_cluster": eb.parabolic_envelope_last_cluster,
         "edt_bestfirst": eb.parabolic_envelope_last_global,
         "edt_bestfirst_inkernel": functools.partial(
             eb.parabolic_envelope_last_global, hoist_cmin=False),
         "edt_envelope_staged": ee.parabolic_envelope_last_staged,
         "edt_envelope_global": ee.parabolic_envelope_last_global,
-        "edt_windowed": ew.parabolic_envelope_last,
+        "edt_windowed_staged": ew.parabolic_envelope_last_staged,
+        "edt_windowed_global": ew.parabolic_envelope_last_global,
     }
 
 
 def staged_planned(kname, f):
     """Whether the staged variant ``kname`` plans ``f`` (its block fits);
-    True for every other kernel."""
-    eb, ee, _ = kernel_modules()
+    True for every other kernel (the forced clustered variant takes the
+    smallest cluster that fits where its plan has none)."""
+    eb, ee, ew = kernel_modules()
     if kname == "edt_bestfirst_staged":
         return eb.plan_lines(f)[0].staged
     if kname == "edt_envelope_staged":
         return ee.plan(f)[1] > 0
+    if kname == "edt_windowed_staged":
+        return ew.plan(f)[1] > 0
     return True
 
 
 def reset_launches():
     eb, ee, ew = kernel_modules()
-    eb.launches_staged = eb.launches = eb.launches_inkernel = 0
-    ee.launches_staged = ee.launches = ew.launches = 0
+    eb.launches_staged = eb.launches_cluster = 0
+    eb.launches = eb.launches_inkernel = 0
+    ee.launches_staged = ee.launches = 0
+    ew.launches_staged = ew.launches = 0
 
 
 def read_launches():
     eb, ee, ew = kernel_modules()
     return {"edt_bestfirst_staged": eb.launches_staged,
+            "edt_bestfirst_cluster": eb.launches_cluster,
             "edt_bestfirst": eb.launches,
             "edt_bestfirst_inkernel": eb.launches_inkernel,
             "edt_envelope_staged": ee.launches_staged,
-            "edt_envelope_global": ee.launches, "edt_windowed": ew.launches}
+            "edt_envelope_global": ee.launches,
+            "edt_windowed_staged": ew.launches_staged,
+            "edt_windowed_global": ew.launches}
 
 
 @contextlib.contextmanager
@@ -284,32 +306,39 @@ def nonneg_envelope_cases():
 def phase_kernel_vs_plain():
     """Every kernel bitwise against the plain version: the staged variants
     on every case whose block fits (the global variants on all, the
-    windowed kernel on f >= 0 only). Returns the largest error per
-    kernel."""
+    clustered variant on all with its plan's or the smallest cluster and
+    with FORCED_CLUSTERS, the windowed kernels on f >= 0 only). Returns the
+    largest error per kernel."""
     from voxelized_geometry_tools_tpu_torch.kernels import edt_bestfirst as k
     signed, nonneg = envelope_cases(), nonneg_envelope_cases()
     refs = [k.parabolic_envelope_last_plain(f) for _, f in signed + nonneg]
     worst = {}
     for kname, fn in kernel_fns().items():
         cases = list(zip(signed + nonneg, refs))
-        if kname == "edt_windowed":
+        if kname.startswith("edt_windowed"):
             cases = cases[len(signed):]
         cases = [c for c in cases if staged_planned(kname, c[0][1])]
+        calls = [(fn, "")]
+        if kname == "edt_bestfirst_cluster":
+            calls += [(functools.partial(fn, cluster=c), f", cluster {c}")
+                      for c in FORCED_CLUSTERS]
         worst[kname] = 0.0
         layouts = set()
         for (name, f), ref in cases:
-            got = fn(f)
-            torch.cuda.synchronize()
-            err = max_abs_err(got, ref)
-            worst[kname] = max(worst[kname], err)
-            if not torch.equal(got, ref):
-                raise AssertionError(f"{kname} != plain on {name}: max abs "
-                                     f"err {err}")
+            for call, how in calls:
+                got = call(f)
+                torch.cuda.synchronize()
+                err = max_abs_err(got, ref)
+                worst[kname] = max(worst[kname], err)
+                if not torch.equal(got, ref):
+                    raise AssertionError(f"{kname} != plain on {name}{how}: "
+                                         f"max abs err {err}")
             layouts.add(k.plan_lines(f)[0].lines_contiguous)
         if layouts != {False, True}:
             raise AssertionError(f"the {kname} cases miss a layout")
-        log(f"kernel vs plain: {kname}: {len(cases)} cases bitwise equal "
-            f"(n up to {max(f.shape[-1] for (_, f), _ in cases)})")
+        log(f"kernel vs plain: {kname}: {len(cases) * len(calls)} cases "
+            f"bitwise equal (n up to "
+            f"{max(f.shape[-1] for (_, f), _ in cases)})")
     return worst
 
 
@@ -521,12 +550,14 @@ def bestfirst_hoist(hoist_cmin):
         eb.parabolic_envelope_last = wrapper
 
 
-def edt_through(mask, backend, hoist_cmin, kname, ref, what):
+def edt_through(mask, backend, hoist_cmin, kname, ref, what, expect=None):
     """The signed EDT of ``mask`` through ``backend``: it must launch
-    ``kname`` exactly twice (y and z passes) and nothing else, and give
-    ``ref``'s bits. Returns the launches and the largest error."""
+    ``kname`` exactly twice (y and z passes) and nothing else, or exactly
+    the launches of ``expect`` (kernel name -> count), and give ``ref``'s
+    bits. Returns ``kname``'s launches and the largest error."""
     from voxelized_geometry_tools_tpu_torch.ops import edt
 
+    expect = expect or {kname: 2}
     torch.cuda.synchronize()
     reset_launches()
     with bestfirst_hoist(hoist_cmin):
@@ -534,16 +565,16 @@ def edt_through(mask, backend, hoist_cmin, kname, ref, what):
                                                    backend=backend)
     torch.cuda.synchronize()
     counts = read_launches()
-    if counts[kname] != 2 or sum(counts.values()) != 2:
+    if {name: n for name, n in counts.items() if n} != expect:
         raise AssertionError(f"{what} via {backend} (hoist_cmin="
-                             f"{hoist_cmin}): launches {counts}, expected 2 "
-                             f"of {kname}")
+                             f"{hoist_cmin}): launches {counts}, expected "
+                             f"{expect}")
     err = max_abs_err(got, ref)
     if not torch.equal(got, ref):
         raise AssertionError(f"{what} via {kname} != reference, max abs "
                              f"err {err}")
     log(f"{what} via backend {backend!r} (hoist_cmin={hoist_cmin}): "
-        f"bitwise equal, 2 launches of {kname}")
+        f"bitwise equal, launches {expect}")
     return counts[kname], err
 
 
@@ -577,6 +608,17 @@ def phase_backend_sweep(mask, sdf, t_plain):
     for kname, (ty, tz) in times.items():
         log(f"edt time {kname}: y {ty:.3f} ms, z {tz:.3f} ms (plain y "
             f"{t_plain['plain_y']:.3f} ms, z {t_plain['plain_z']:.3f} ms)")
+    _, _, ew = kernel_modules()
+    for name, x, r, i in (("y", fy, ry, 0), ("z", dz, rz, 1)):
+        wc = ew.walk_count(x, r)
+        log(f"edt windowed {name} pass: staged "
+            f"{times['edt_windowed_staged'][i]:.3f} ms, global "
+            f"{times['edt_windowed_global'][i]:.3f} ms; byte bound "
+            f"{envelope_bound(x)['bytes_ms']:.4f} ms; walk count (a lower "
+            f"bound) {wc}: {wc['chunks'] / wc['tiles']:.4f} chunks a tile, "
+            f"{wc['dead'] / max(wc['chunks'], 1):.4f} of them +inf on every "
+            f"line, {wc['whole_axis'] / wc['tiles']:.4f} of tiles walk the "
+            f"whole axis")
     for kname in ("edt_envelope_staged", "edt_envelope_global"):
         for name, x, ms in (("y", fy, times[kname][0]),
                             ("z", dz, times[kname][1])):
@@ -591,12 +633,15 @@ def phase_backend_sweep(mask, sdf, t_plain):
 
 
 def phase_global_variant():
-    """An axis too long for the staged blocks: the signed EDT of a [4, 2048,
-    2048] grid takes the best-first kernel's global variant on its own, for
-    both hoist_cmin, and the full sweep's global variant through the
-    cuda-envelope backend, and must equal the plain backend bit for bit;
-    then the global variants' per-pass times, the plain passes' and the
-    bounds on that grid's stacked field."""
+    """Axes too long for the staged blocks: the signed EDT of a [4, 2048,
+    2048] grid takes the best-first kernel's clustered variant for both
+    hoist_cmin, the full sweep's and the windowed walk's global variants
+    through cuda-envelope and cuda-windowed, and must equal the plain
+    backend bit for bit; the z axis of a LONG_SHAPE grid, beyond a
+    cluster's reach, takes the best-first kernel's global variant for each
+    hoist_cmin. Then the per-pass times on the 2048 grid's stacked field
+    (the global best-first variants forced), the plain passes', the
+    cluster's plan and the bounds."""
     from voxelized_geometry_tools_tpu_torch.kernels import edt_bestfirst as k
     from voxelized_geometry_tools_tpu_torch.ops import edt
 
@@ -609,26 +654,68 @@ def phase_global_variant():
                                                  backend="plain")
     launches, errs = {}, {}
     for backend, hoist, kname in (
-            ("cuda-bestfirst", True, "edt_bestfirst"),
-            ("cuda-bestfirst", False, "edt_bestfirst_inkernel"),
-            ("cuda-envelope", True, "edt_envelope_global")):
-        launches[kname], errs[kname] = edt_through(
+            ("cuda-bestfirst", True, "edt_bestfirst_cluster"),
+            ("cuda-bestfirst", False, "edt_bestfirst_cluster"),
+            ("cuda-envelope", True, "edt_envelope_global"),
+            ("cuda-windowed", True, "edt_windowed_global")):
+        launches[kname], err = edt_through(
             mask, backend, hoist, kname, plain,
             f"edt [{GLOBAL_X}, {n}, {n}]")
-    fy, dz, _, _ = stacked_passes(mask)
+        errs[kname] = max(errs.get(kname, 0.0), err)
+    del plain
+
+    long_mask = torch.zeros(LONG_SHAPE, dtype=torch.bool, device="cuda")
+    long_mask[1:3, 4:9, 3000:3100] = True
+    long_mask[:, 10, 11000:11004] = True
+    long_plain = edt.signed_distance_from_filled_mask(long_mask, RESOLUTION,
+                                                      backend="plain")
+    for hoist, kname in ((True, "edt_bestfirst"),
+                         (False, "edt_bestfirst_inkernel")):
+        launches[kname], errs[kname] = edt_through(
+            long_mask, "cuda-bestfirst", hoist, kname, long_plain,
+            f"edt {list(LONG_SHAPE)}", {"edt_bestfirst_staged": 1, kname: 1})
+    del long_mask, long_plain
+
+    fy, dz, ry, rz = stacked_passes(mask)
     for x in (fy, dz):
         if any(staged_planned(name, x) for name in
-               ("edt_bestfirst_staged", "edt_envelope_staged")):
+               ("edt_bestfirst_staged", "edt_envelope_staged",
+                "edt_windowed_staged")):
             raise AssertionError(f"an axis of {n} planned a staged variant")
+        plan = k.plan_lines(x)[0]
+        if plan.cluster != 2 or plan.copy:
+            raise AssertionError(f"an axis of {n}: {plan}, expected a "
+                                 "cluster of 2 read in place")
+        smem = k.cluster_smem_bytes(n, plan.lines_contiguous, plan.cluster,
+                                    plan.cluster_warps)
+        held = k._resident_clusters(n, plan.lines_contiguous, plan.cluster,
+                                    plan.cluster_warps, 0)
+        log(f"edt [{GLOBAL_X}, {n}, {n}] cluster plan: {plan}; {smem} bytes "
+            f"of shared memory a CTA; {held} such clusters resident at once")
     fns = kernel_fns()
-    times = time_passes({name: fns[name] for name in launches}, fy, dz)
+    names = list(launches) + ["edt_bestfirst", "edt_bestfirst_inkernel"]
+    times = time_passes({name: fns[name] for name in dict.fromkeys(names)},
+                        fy, dz)
+    for hoist in (True, False):
+        times[f"wrapper_hoist_{hoist}"] = time_passes(
+            {"w": functools.partial(k.parabolic_envelope_last,
+                                    hoist_cmin=hoist)}, fy, dz)["w"]
     plain_ms = (cuda_ms(lambda: k.parabolic_envelope_last_plain(fy), 1),
                 cuda_ms(lambda: k.parabolic_envelope_last_plain(dz), 1))
     bounds = [envelope_bound(fy), envelope_bound(dz)]
     for kname, (ty, tz) in times.items():
-        log(f"edt [{GLOBAL_X}, {n}, {n}] time {kname}: y {ty:.3f} ms, z "
-            f"{tz:.3f} ms (plain y {plain_ms[0]:.3f} ms, z "
-            f"{plain_ms[1]:.3f} ms); bounds {bounds}")
+        log(f"edt [{GLOBAL_X}, {n}, {n}] time {kname}: y {ty:.4f} ms, z "
+            f"{tz:.4f} ms (plain y {plain_ms[0]:.3f} ms, z "
+            f"{plain_ms[1]:.3f} ms); bound / time y "
+            f"{bounds[0]['bound_ms'] / ty:.3f}, z "
+            f"{bounds[1]['bound_ms'] / tz:.3f}")
+    log(f"edt [{GLOBAL_X}, {n}, {n}] bounds {bounds}")
+    for name, x, r in (("y", fy, ry), ("z", dz, rz)):
+        vc = k.visit_count(x, r, cluster=2)
+        log(f"edt [{GLOBAL_X}, {n}, {n}] {name} pass visit count: {vc}; "
+            f"{vc['chunks'] / vc['tiles']:.4f} chunks a tile, remote share "
+            f"{vc['remote'] / max(vc['chunks'], 1):.4f}")
+    del fy, dz, ry, rz
     return launches, errs, times, plain_ms, bounds
 
 
@@ -1316,10 +1403,12 @@ def main():
     for kname, (source, replaces) in KERNELS.items():
         # Each envelope kernel's y + z passes, wrapper included, against the
         # plain version and the bound of the same passes. The staged
-        # variant: the main path's launches and its 512^3 field. The global
-        # variants: the [4, 2048, 2048] EDT's launches and field. The full
-        # sweep and the windowed walk: the 512^3 backend sweep's launches
-        # and the main path's field.
+        # best-first variant: the main path's launches and its 512^3 field.
+        # The clustered and global variants: the [4, 2048, 2048] field; the
+        # launches of the [4, 2048, 2048] EDT (hoist_cmin=True), or of the
+        # LONG_SHAPE EDT for the global best-first variants. The full
+        # sweep's and the windowed walk's staged variants: the 512^3 backend
+        # sweep's launches and the main path's field.
         errs = [err_cases[kname]]
         parts = [pass_bounds["y"], pass_bounds["z"]]
         if kname == "edt_bestfirst_staged":

@@ -245,10 +245,13 @@ def test_plan_copies_only_when_neither_axis_is_contiguous():
 @pytest.mark.parametrize("lines_contiguous", [True, False])
 def test_staged_or_global_by_axis_length(n, warps, lines_contiguous):
     """The choice is made by shape: 512 stages with two 8-warp CTAs per SM,
-    1024 with one 16-warp CTA, 1792 and 2048 take the global variant. The
-    staged block fits a block's opt-in shared memory whenever it is
-    chosen."""
+    1024 with one 16-warp CTA, 1792 and 2048 take the clustered variant (a
+    cluster of 2 CTAs of 16 warps; the global variant runs only above a
+    cluster's reach). The staged block fits a block's opt-in shared memory
+    whenever it is chosen."""
     assert eb.staged_warps(n, lines_contiguous) == warps
+    assert eb.cluster_plan(n, lines_contiguous) == ((0, 0) if warps else
+                                                    (2, 16))
     if warps:
         assert (eb.staged_smem_bytes(n, lines_contiguous, warps)
                 <= eb.SMEM_BLOCK_LIMIT)
@@ -261,7 +264,9 @@ def test_staged_or_global_by_axis_length(n, warps, lines_contiguous):
                     > eb.SMEM_BLOCK_LIMIT)
     f = torch.zeros(2, 3, n) if not lines_contiguous else \
         torch.zeros(2, n, 3).movedim(1, -1)
-    assert eb.plan_lines(f)[0].staged == bool(warps)
+    plan = eb.plan_lines(f)[0]
+    assert plan.staged == bool(warps)
+    assert plan.clustered == (not warps)
 
 
 def test_staged_smem_layout():

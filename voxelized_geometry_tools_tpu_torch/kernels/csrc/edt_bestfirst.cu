@@ -7,17 +7,25 @@
 // _bestfirst_cmin_kernel (edt_pallas.py:301, hoist_cmin=True: the chunk
 // minima come in precomputed) and _bestfirst_kernel (edt_pallas.py:241,
 // hoist_cmin=False: the kernel reduces them itself). It computes the same
-// function with the port's own design, in two variants chosen by shape:
+// function with the port's own design, in three variants chosen by shape:
 //
 // * Staged (edt_bestfirst_staged_kernel), for every axis whose 32-line block
-//   fits a block's shared memory (n up to 1,536 or 1,776, by layout). It
-//   serves both hoist_cmin values: the minima are always formed in shared
-//   memory, so both give this kernel and the same bits.
-// * Global (edt_bestfirst_kernel), for longer axes: each warp reads its rows
-//   from global memory, on the layout and tiles of edt_common.cuh, with the
-//   chunk minima hoisted (a cmin input) or reduced by each warp itself.
+//   fits a block's shared memory (n up to 1,536 or 1,776, by layout).
+// * Clustered (edt_bestfirst_cluster_kernel), for longer axes whose block
+//   fits the shared memory of a thread block cluster of 2, 4 or 8 CTAs (n
+//   up to 12,032 or 12,672, by layout): each CTA stages a contiguous share
+//   of the block's rows, and the CTAs read each other's shares through
+//   distributed shared memory.
+// * Global (edt_bestfirst_kernel), above a cluster's reach: each warp reads
+//   its rows from global memory, on the layout and tiles of edt_common.cuh,
+//   with the chunk minima hoisted (a cmin input) or reduced by each warp
+//   itself.
 //
-// Best-first order and stop (both variants). k is visited in chunks of CH
+// The staged and clustered variants serve both hoist_cmin values: the
+// minima are always formed in shared memory, so both give the same kernel
+// and the same bits.
+//
+// Best-first order and stop (every variant). k is visited in chunks of CH
 // rows. Each chunk c has the admissible bound geom(tile, c)^2 + cmin[c],
 // where geom is the gap from the q tile to the chunk's nearest row and
 // cmin[c] is the chunk's minimum over the tile's 32 lines. The warp visits
@@ -72,11 +80,32 @@
 //   latency); a 1024-line axis stages 128-130 KiB, one CTA of 16 warps. The
 //   warps take q tiles from a shared counter, so a slow tile does not hold
 //   its CTA's other warps idle.
+//
+// The clustered design. A 2048-line block is 256 KiB, above the 227 KiB a
+// CTA may opt into, and the global variant reads every row of it from L2 for
+// each visit (and, reducing the minima itself, all of it once per q tile:
+// the field 64 times over at n = 2048). A cluster of C CTAs on neighbouring
+// SMs holds the block between them: CTA r stages rows [r * S, (r + 1) * S)
+// (S = ceil(n_ch / C) chunks) in the staged layouts, with the z layout's
+// line stride taken from the share, and forms its chunks' minima, writing
+// each into every CTA's minima array (map_shared_rank). Its warps take the
+// q tiles whose first row it holds, so the nearest chunks of a tile, which
+// best-first visits first, are mostly its own; a chunk of another CTA is
+// read through distributed shared memory with the same loads. Once its own
+// tiles are taken, a CTA's warps take a peer's remaining ones from the
+// peer's counter (a remote atomicAdd), so no CTA of the cluster idles at
+// the final barrier while another still walks its far tiles. C is the
+// smallest of 2, 4, 8 whose share fits (edt_bestfirst.py::cluster_plan: C =
+// 2 with 16 warps at n = 2048), so f leaves HBM once per pass, with no
+// minima pass and no transposed copy.
+
+#include <cooperative_groups.h>
 
 #include "edt_staged.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
 using namespace edt;
 
 __device__ __forceinline__ float chunk_bound(int q0, int c, float cmin) {
@@ -189,80 +218,19 @@ __device__ __forceinline__ float key_value(unsigned k) {
   return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
 }
 
-constexpr int QG = 8;  // positions of a group a visit may skip
-
-// One chunk visit of the staged kernel: the chunk at row k0 (this lane's
-// rows fk) against the tile at q0, in groups of QG positions. A group takes
-// the chunk's candidates unless no lane can lower one of its entries with
-// them: each candidate of the group is >= gap^2 + (the lane's minimum over
-// fk), rounded, where gap is the group's distance to the chunk, and a
-// group whose every lane holds no entry above that is skipped (the whole
-// visit, squares included, when every group is). d ends exactly as a
-// full visit (edt_common.cuh's visit_chunk) would leave it.
-
-__device__ __forceinline__ void visit_groups(float (&d)[TQ],
-                                             const float (&fk)[CH], int q0,
-                                             int k0) {
-  float fmin[CH];
-#pragma unroll
-  for (int u = 0; u < CH; ++u) fmin[u] = fk[u];
-  fold_halves<CH / 2>(fmin, [](float a, float b) { return fminf(a, b); });
-  // base + g * QG = (first position of group g) - (last row of the chunk).
-  const float base = static_cast<float>(q0 - k0 - (CH - 1));
-  bool need[TQ / QG];
-  bool any = false;
-#pragma unroll
-  for (int g = 0; g < TQ / QG; ++g) {
-    const float lo = __fadd_rn(base, static_cast<float>(g * QG));
-    const float hi = __fadd_rn(lo, static_cast<float>(QG - 1 + CH - 1));
-    const float gap = fmaxf(fmaxf(lo, -hi), 0.0f);
-    const float bound = __fadd_rn(__fmul_rn(gap, gap), fmin[0]);
-    float gm[QG];
-#pragma unroll
-    for (int i = 0; i < QG; ++i) gm[i] = d[g * QG + i];
-    fold_halves<QG / 2>(gm, [](float a, float b) { return fmaxf(a, b); });
-    need[g] = __any_sync(FULL, bound < gm[0]);
-    any = any || need[g];
-  }
-  if (!any) return;
-  float sq[SQ];
-  staged_squares(sq, q0, k0);
-#pragma unroll
-  for (int g = 0; g < TQ / QG; ++g) {
-    if (!need[g]) continue;
-#pragma unroll
-    for (int u = 0; u < CH; ++u) {
-#pragma unroll
-      for (int i = 0; i < QG; ++i) {
-        const int q = g * QG + i;
-        d[q] = fminf(d[q], __fadd_rn(sq[q - u + CH - 1], fk[u]));
-      }
-    }
-  }
-}
-
-// The largest entry of d (entries past the tile hold -inf).
-__device__ __forceinline__ float tile_max(const float (&d)[TQ]) {
-  float m[TQ / 2];
-#pragma unroll
-  for (int i = 0; i < TQ / 2; ++i) m[i] = fmaxf(d[i], d[i + TQ / 2]);
-  fold_halves<TQ / 4>(m, [](float a, float b) { return fmaxf(a, b); });
-  return m[0];
-}
-
-// cmin[c] = min of the staged block's chunk c (pads are +inf), for chunks
-// first, first + step, ... (one warp each).
-template <bool kLinesContig>
-__device__ __forceinline__ void block_minima(const float* fs, float* cmin,
-                                             const StagedLayout& g,
-                                             int first, int step) {
+// The minima of the staged chunks first, first + step, ... below n_ch (one
+// warp each; pads are +inf): lane 0 calls store(c, minimum of chunk c).
+template <bool kLinesContig, typename Store>
+__device__ __forceinline__ void block_minima(const float* fs, int stride,
+                                             int n_ch, int first, int step,
+                                             Store store) {
   const int lane = threadIdx.x & 31;
-  for (int c = first; c < g.n_ch; c += step) {
+  for (int c = first; c < n_ch; c += step) {
     float fk[CH];
-    load_chunk<kLinesContig>(fk, fs, g.stride, c * CH, lane);
+    load_chunk<kLinesContig>(fk, fs, stride, c * CH, lane);
     fold_halves<CH / 2>(fk, [](float a, float b) { return fminf(a, b); });
     const unsigned m = __reduce_min_sync(FULL, order_key(fk[0]));
-    if (lane == 0) cmin[c] = key_value(m);
+    if (lane == 0) store(c, key_value(m));
   }
 }
 
@@ -283,39 +251,37 @@ __device__ __forceinline__ int next_chunk(const float* bounds, int n_ch,
       __reduce_min_sync(FULL, key == kmin ? bc : 0xffffffffu));
 }
 
-// One warp's [TQ x 32] output tile at q0 of a staged block (nl real lines):
-// best-first over the block's chunks, then the store to ob, the block's
-// first line in the output (position q of line i at ob + q * oK + i * oL).
-// region: this warp's scratch (g.region floats).
-template <bool kLinesContig>
-__device__ __forceinline__ void staged_tile(const float* fs,
-                                            const float* cmin, float* region,
-                                            const StagedLayout& g, int n,
-                                            int q0, int nl, float* ob,
-                                            long long oK, long long oL) {
+// One warp's [TQ x 32] output tile at q0 (nl real lines) over the n_ch
+// chunks of the axis, whose minima are cmin: best-first, each chunk's rows
+// from load(fk, c), then the store to ob, the block's first line in the
+// output (position q of line i at ob + q * oK + i * oL). region: this
+// warp's scratch (the bounds of n_ch chunks and, in the z layout,
+// afterwards its [TQ][XS] output tile).
+template <bool kLinesContig, typename Load>
+__device__ __forceinline__ void bestfirst_tile(const float* cmin,
+                                               float* region, int n_ch, int n,
+                                               int q0, int nl, float* ob,
+                                               long long oK, long long oL,
+                                               Load load) {
   const int lane = threadIdx.x & 31;
   const int q_count = min(TQ, n - q0);
   const bool line_ok = lane < nl;
-  for (int c = lane; c < g.n_ch; c += 32) {
+  for (int c = lane; c < n_ch; c += 32) {
     region[c] = chunk_bound(q0, c, cmin[c]);
   }
   __syncwarp();
-  // Rows past n start (and stay) at -inf, so they never hold the stop open;
-  // lanes past the last line report -inf.
+  // Lanes past the last line report -inf.
   float d[TQ];
-#pragma unroll
-  for (int q = 0; q < TQ; ++q) {
-    d[q] = q < q_count ? CUDART_INF_F : -CUDART_INF_F;
-  }
+  init_staged_tile(d, q_count);
   // Best-first: the smallest remaining bound (lowest chunk on a tie), until
   // it is >= every real entry of the tile.
   while (true) {
     unsigned kmin;
-    const int c = next_chunk(region, g.n_ch, kmin);
+    const int c = next_chunk(region, n_ch, kmin);
     const float dmax = line_ok ? tile_max(d) : -CUDART_INF_F;
     if (__all_sync(FULL, dmax <= key_value(kmin))) break;
     float fk[CH];
-    load_chunk<kLinesContig>(fk, fs, g.stride, c * CH, lane);
+    load(fk, c);
     visit_groups(d, fk, q0, c * CH);
     if (lane == (c & 31)) region[c] = CUDART_INF_F;
     __syncwarp();
@@ -352,17 +318,190 @@ edt_bestfirst_staged_kernel(const float* __restrict__ f,
   if (threadIdx.x == 0) s_next_tile = kWarps;
   cp_async_wait_all();
   __syncthreads();
-  block_minima<kLinesContig>(fs, cmin, g, warp, kWarps);
+  block_minima<kLinesContig>(fs, g.stride, g.n_ch, warp, kWarps,
+                             [&](int c, float m) { cmin[c] = m; });
   __syncthreads();
 
+  const auto load = [&](float (&fk)[CH], int c) {
+    load_chunk<kLinesContig>(fk, fs, g.stride, c * CH, lane);
+  };
   const int n_qt = (n + TQ - 1) / TQ;
   for (int qt = warp; qt < n_qt;) {
-    staged_tile<kLinesContig>(fs, cmin, region, g, n, qt * TQ, nl,
-                              out + b * oB + l0 * oL, oK, oL);
+    bestfirst_tile<kLinesContig>(cmin, region, g.n_ch, n, qt * TQ, nl,
+                                 out + b * oB + l0 * oL, oK, oL, load);
     int next = 0;
     if (lane == 0) next = atomicAdd(&s_next_tile, 1);
     qt = __shfl_sync(FULL, next, 0);
   }
+}
+
+// ---------------------------------------------------------------------------
+// Clustered variant.
+
+// Shared-memory plan of one CTA of a cluster of `cluster` CTAs, in floats:
+// its share of the block (BlockGeom of share.n_ch = ceil(n_ch / cluster)
+// chunks: rows [share.n16][32], or lines [32][stride] with stride = 4 mod
+// 32), the minima of all n_ch chunks of the axis, then one region per warp
+// (as StagedLayout's, for n_ch chunks).
+// edt_bestfirst.py::cluster_smem_bytes mirrors it.
+struct ClusterLayout {
+  BlockGeom share;
+  int n_ch, region;
+  __host__ __device__ size_t bytes(int warps) const {
+    return sizeof(float) * (static_cast<size_t>(share.block) + n_ch +
+                            static_cast<size_t>(warps) * region);
+  }
+};
+
+__host__ __device__ inline ClusterLayout cluster_layout(int n,
+                                                        bool lines_contig,
+                                                        int cluster) {
+  ClusterLayout g;
+  g.n_ch = (n + CH - 1) / CH;
+  g.share = block_geom((g.n_ch + cluster - 1) / cluster * CH, lines_contig);
+  g.region = lines_contig || g.n_ch > TQ * XS ? g.n_ch : TQ * XS;
+  return g;
+}
+
+// One cluster of `cluster` CTAs per (b, 32-line block). CTA r stages rows
+// [r * share.n16, (r + 1) * share.n16) of the block (its chunks r *
+// share.n_ch, ...), forms their minima and writes each into every CTA's
+// cmin (distributed shared memory); then its warps take the q tiles whose
+// first row it holds from its own counter, then its peers' leftovers from
+// theirs, reading a chunk another CTA holds through distributed shared
+// memory. Cluster barriers: after the stage (every CTA has started and
+// staged), after the minima, and before exit (a CTA's rows must outlive its
+// peers' last reads).
+template <bool kLinesContig, int kWarps>
+__global__ void __launch_bounds__(kWarps * 32, 16 / kWarps)
+edt_bestfirst_cluster_kernel(const float* __restrict__ f,
+                             float* __restrict__ out, int n, int L, int n_lb,
+                             int cluster, long long sB, long long sK,
+                             long long sL, long long oB, long long oK,
+                             long long oL, bool vec) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int s_next_tile;
+  cg::cluster_group cl = cg::this_cluster();
+  const ClusterLayout g = cluster_layout(n, kLinesContig, cluster);
+  const int rank = static_cast<int>(cl.block_rank());
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long line_block = blockIdx.x / cluster;
+  const long long b = line_block / n_lb;
+  const int l0 = static_cast<int>(line_block % n_lb) * LINES;
+  const int nl = min(LINES, L - l0);
+  const int row0 = rank * g.share.n16;
+  const int rows = max(0, min(g.share.n16, n - row0));
+  float* fs = smem;
+  float* cmin = smem + g.share.block;
+  float* region = cmin + g.n_ch + warp * g.region;
+
+  stage_block<kLinesContig>(fs, f + b * sB + l0 * sL + row0 * sK, g.share,
+                            rows, nl, sK, sL, vec, threadIdx.x, blockDim.x);
+  if (threadIdx.x == 0) s_next_tile = 0;
+  cp_async_wait_all();
+  cl.sync();
+  const int c0 = rank * g.share.n_ch;
+  block_minima<kLinesContig>(
+      fs, g.share.stride, min(g.share.n_ch, g.n_ch - c0), warp, kWarps,
+      [&](int c, float m) {
+        for (int r = 0; r < cluster; ++r) {
+          cl.map_shared_rank(cmin, r)[c0 + c] = m;
+        }
+      });
+  cl.sync();
+
+  const auto load = [&](float (&fk)[CH], int c) {
+    const int owner = c / g.share.n_ch;
+    const int k0 = (c - owner * g.share.n_ch) * CH;
+    if (owner == rank) {
+      load_chunk<kLinesContig>(fk, fs, g.share.stride, k0, lane);
+    } else {
+      load_chunk<kLinesContig>(fk, cl.map_shared_rank(fs, owner),
+                               g.share.stride, k0, lane);
+    }
+  };
+  // The q tiles whose first row lies in CTA v's share come from v's
+  // counter: this CTA's own first, then each peer's in turn, so a CTA whose
+  // tiles end early takes the rest of a slower peer's.
+  int victim = rank;
+  while (true) {
+    const int v_row0 = victim * g.share.n16;
+    const int v_qt0 = (v_row0 + TQ - 1) / TQ;
+    const int v_end = (min(v_row0 + g.share.n16, n) + TQ - 1) / TQ;
+    int next = 0;
+    if (lane == 0) {
+      next = atomicAdd(cl.map_shared_rank(&s_next_tile, victim), 1);
+    }
+    const int qt = v_qt0 + __shfl_sync(FULL, next, 0);
+    if (qt < v_end) {
+      bestfirst_tile<kLinesContig>(cmin, region, g.n_ch, n, qt * TQ, nl,
+                                   out + b * oB + l0 * oL, oK, oL, load);
+      continue;
+    }
+    victim = victim + 1 == cluster ? 0 : victim + 1;
+    if (victim == rank) break;
+  }
+  cl.sync();
+}
+
+// The launch of the clustered variant: one cluster of `cluster` CTAs of
+// `warps` warps per (b, 32-line block), the kernel's shared memory opted
+// into. config and attr are filled; the caller passes them to
+// cudaLaunchKernelEx or cudaOccupancyMaxActiveClusters.
+template <bool kLinesContig>
+cudaError_t cluster_config(long long B, int n, int L, int cluster, int warps,
+                           cudaStream_t stream, const void** kernel,
+                           cudaLaunchConfig_t* config,
+                           cudaLaunchAttribute* attr) {
+  if ((warps != 8 && warps != 16) ||
+      (cluster != 2 && cluster != 4 && cluster != 8)) {
+    return cudaErrorInvalidValue;
+  }
+  *kernel = warps == 8
+                ? reinterpret_cast<const void*>(
+                      edt_bestfirst_cluster_kernel<kLinesContig, 8>)
+                : reinterpret_cast<const void*>(
+                      edt_bestfirst_cluster_kernel<kLinesContig, 16>);
+  const size_t smem = cluster_layout(n, kLinesContig, cluster).bytes(warps);
+  const cudaError_t err = cudaFuncSetAttribute(
+      *kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = static_cast<unsigned>(cluster);
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  *config = cudaLaunchConfig_t{};
+  config->gridDim = dim3(static_cast<unsigned>(
+      B * ((L + LINES - 1) / LINES) * cluster));
+  config->blockDim = dim3(warps * 32);
+  config->dynamicSmemBytes = smem;
+  config->stream = stream;
+  config->attrs = attr;
+  config->numAttrs = 1;
+  return cudaSuccess;
+}
+
+template <bool kLinesContig>
+cudaError_t launch_cluster(const float* f, float* out, long long B, int n,
+                           int L, long long sB, long long sK, long long sL,
+                           long long oB, long long oK, long long oL,
+                           int cluster, int warps, bool vec,
+                           cudaStream_t stream) {
+  const void* kernel;
+  cudaLaunchConfig_t config;
+  cudaLaunchAttribute attr;
+  cudaError_t err = cluster_config<kLinesContig>(B, n, L, cluster, warps,
+                                                 stream, &kernel, &config,
+                                                 &attr);
+  if (err != cudaSuccess) return err;
+  int n_lb = (L + LINES - 1) / LINES;
+  void* args[] = {&f, &out, &n, &L, &n_lb, &cluster,
+                  &sB, &sK, &sL, &oB, &oK, &oL, &vec};
+  err = cudaLaunchKernelExC(&config, kernel, args);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 template <bool kLinesContig>
@@ -440,6 +579,66 @@ int edt_bestfirst_staged_launch(const float* f, float* out, long long B,
                                warps, even && sK == 1 && sL % 4 == 0, st);
   }
   return static_cast<int>(err);
+}
+
+// Clustered variant: as the staged one, with `cluster` (2, 4 or 8) CTAs of
+// `warps` warps per (b, 32-line block). The wrapper checks first that such
+// a cluster can be resident (edt_bestfirst_cluster_max_active).
+int edt_bestfirst_cluster_launch(const float* f, float* out, long long B,
+                                 long long n, long long L, long long sB,
+                                 long long sK, long long sL, long long oB,
+                                 long long oK, long long oL,
+                                 int lines_contiguous, int cluster, int warps,
+                                 int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool even = sB % 4 == 0 && aligned16(f);
+  const int ni = static_cast<int>(n);
+  const int Li = static_cast<int>(L);
+  if (lines_contiguous) {
+    err = launch_cluster<true>(f, out, B, ni, Li, sB, sK, sL, oB, oK, oL,
+                               cluster, warps,
+                               even && sL == 1 && sK % 4 == 0, st);
+  } else {
+    err = launch_cluster<false>(f, out, B, ni, Li, sB, sK, sL, oB, oK, oL,
+                                cluster, warps,
+                                even && sK == 1 && sL % 4 == 0, st);
+  }
+  return static_cast<int>(err);
+}
+
+// Clusters of the clustered variant for an axis of n that the device can
+// hold at once (cudaOccupancyMaxActiveClusters); -1 on error.
+int edt_bestfirst_cluster_max_active(long long n, int lines_contiguous,
+                                     int cluster, int warps, int device) {
+  if (cudaSetDevice(device) != cudaSuccess) return -1;
+  const void* kernel;
+  cudaLaunchConfig_t config;
+  cudaLaunchAttribute attr;
+  const int ni = static_cast<int>(n);
+  const cudaError_t err =
+      lines_contiguous
+          ? cluster_config<true>(1, ni, LINES, cluster, warps, nullptr,
+                                 &kernel, &config, &attr)
+          : cluster_config<false>(1, ni, LINES, cluster, warps, nullptr,
+                                  &kernel, &config, &attr);
+  if (err != cudaSuccess) return -1;
+  int count = 0;
+  if (cudaOccupancyMaxActiveClusters(&count, kernel, &config) !=
+      cudaSuccess) {
+    return -1;
+  }
+  return count;
+}
+
+// Dynamic shared memory of one CTA of the clustered variant, in bytes (what
+// the wrapper's cluster_smem_bytes must give).
+long long edt_bestfirst_cluster_smem(long long n, int lines_contiguous,
+                                     int cluster, int warps) {
+  return static_cast<long long>(
+      cluster_layout(static_cast<int>(n), lines_contiguous != 0, cluster)
+          .bytes(warps));
 }
 
 // Dynamic shared memory of one staged CTA, in bytes (what the wrapper's

@@ -1,8 +1,9 @@
 // Device code of the staged envelope kernels (edt_bestfirst.cu's staged
-// variant and edt_envelope.cu's staged full sweep): one CTA copies the
-// whole [n x 32] block of a line block into dynamic shared memory with
-// cp.async and reads it in place in either pass layout; its warps take
-// [TQ x 32] output tiles of that block.
+// and clustered variants, edt_envelope.cu's staged full sweep and
+// edt_windowed.cu's staged walk): one CTA copies the whole [n x 32] block
+// of a line block (or, in a cluster, its share of the rows) into dynamic
+// shared memory with cp.async and reads it in place in either pass layout;
+// its warps take [TQ x 32] output tiles of that block.
 //
 // Layouts of the staged block. kLinesContig (the y pass: lines on the
 // contiguous axis) stages rows [n16][32 lines], so a warp reads one k-row of
@@ -161,6 +162,79 @@ __device__ __forceinline__ void fold_halves(float* v, Op op) {
 #pragma unroll
   for (int i = 0; i < W; ++i) v[i] = op(v[i], v[i + W]);
   if constexpr (W > 1) fold_halves<W / 2>(v, op);
+}
+
+constexpr int QG = 8;  // positions of a group a visit may skip
+
+// One chunk visit of a staged kernel (edt_bestfirst.cu's staged and
+// clustered variants, edt_windowed.cu's staged walk): the chunk at row k0
+// (this lane's rows fk) against the tile at q0, in groups of QG positions.
+// A group takes the chunk's candidates unless no lane can lower one of its
+// entries with them: each candidate of the group is >= gap^2 + (the lane's
+// minimum over fk), rounded, where gap is the group's distance to the
+// chunk, and a group whose every lane holds no entry above that is skipped
+// (the whole visit, squares included, when every group is: a chunk that is
+// +inf on every lane costs a fold of CH values and TQ / QG votes). The test
+// holds for any f. d ends exactly as a full visit (edt_common.cuh's
+// visit_chunk) would leave it.
+__device__ __forceinline__ void visit_groups(float (&d)[TQ],
+                                             const float (&fk)[CH], int q0,
+                                             int k0) {
+  float fmin[CH];
+#pragma unroll
+  for (int u = 0; u < CH; ++u) fmin[u] = fk[u];
+  fold_halves<CH / 2>(fmin, [](float a, float b) { return fminf(a, b); });
+  // base + g * QG = (first position of group g) - (last row of the chunk).
+  const float base = static_cast<float>(q0 - k0 - (CH - 1));
+  bool need[TQ / QG];
+  bool any = false;
+#pragma unroll
+  for (int g = 0; g < TQ / QG; ++g) {
+    const float lo = __fadd_rn(base, static_cast<float>(g * QG));
+    const float hi = __fadd_rn(lo, static_cast<float>(QG - 1 + CH - 1));
+    const float gap = fmaxf(fmaxf(lo, -hi), 0.0f);
+    const float bound = __fadd_rn(__fmul_rn(gap, gap), fmin[0]);
+    float gm[QG];
+#pragma unroll
+    for (int i = 0; i < QG; ++i) gm[i] = d[g * QG + i];
+    fold_halves<QG / 2>(gm, [](float a, float b) { return fmaxf(a, b); });
+    need[g] = __any_sync(FULL, bound < gm[0]);
+    any = any || need[g];
+  }
+  if (!any) return;
+  float sq[SQ];
+  staged_squares(sq, q0, k0);
+#pragma unroll
+  for (int g = 0; g < TQ / QG; ++g) {
+    if (!need[g]) continue;
+#pragma unroll
+    for (int u = 0; u < CH; ++u) {
+#pragma unroll
+      for (int i = 0; i < QG; ++i) {
+        const int q = g * QG + i;
+        d[q] = fminf(d[q], __fadd_rn(sq[q - u + CH - 1], fk[u]));
+      }
+    }
+  }
+}
+
+// The largest entry of d (entries past the tile hold -inf).
+__device__ __forceinline__ float tile_max(const float (&d)[TQ]) {
+  float m[TQ / 2];
+#pragma unroll
+  for (int i = 0; i < TQ / 2; ++i) m[i] = fmaxf(d[i], d[i + TQ / 2]);
+  fold_halves<TQ / 4>(m, [](float a, float b) { return fmaxf(a, b); });
+  return m[0];
+}
+
+// The d of a staged tile before any visit: +inf at its q_count real
+// positions, -inf past them (rows past n never hold a stop open).
+__device__ __forceinline__ void init_staged_tile(float (&d)[TQ],
+                                                 int q_count) {
+#pragma unroll
+  for (int q = 0; q < TQ; ++q) {
+    d[q] = q < q_count ? CUDART_INF_F : -CUDART_INF_F;
+  }
 }
 
 // Stores one warp's [TQ x 32] tile d (position q0 + q of the lane's line,

@@ -6,15 +6,20 @@ Both compute ``d[..., q] = min_k (q - k)^2 + f[..., k]`` for a float32
 and agree bit for bit. :func:`parabolic_envelope_last` launches the kernel
 for a CUDA tensor and takes the plain version only for a CPU tensor.
 
-The kernel has two variants, chosen by shape up front (:func:`plan_lines`):
+The kernel has three variants, chosen by shape up front (:func:`plan_lines`):
 the staged one, which copies each 32-line block into shared memory, forms
 the chunk minima there and reads and writes both pass layouts in place,
 for every axis whose block fits a block's shared memory
-(:func:`staged_warps`); and the global one, which reads ``f`` from global
-memory with the lines on the contiguous axis (a transposed copy where they
-are not) and takes its chunk minima from :func:`_chunk_minima` or, with
-``hoist_cmin=False``, reduces them itself. ``launches_staged``,
-``launches`` and ``launches_inkernel`` count the launches of each.
+(:func:`staged_warps`: n up to 1,536 with the positions contiguous, 1,776
+with the lines contiguous); the clustered one, which spreads the block over
+the shared memory of a thread block cluster of 2, 4 or 8 CTAs
+(:func:`cluster_plan`), for longer axes up to a cluster's reach; and the
+global one, which reads ``f`` from global memory with the lines on the
+contiguous axis (a transposed copy where they are not) and takes its chunk
+minima from :func:`_chunk_minima` or, with ``hoist_cmin=False``, reduces
+them itself. The staged and clustered variants serve both ``hoist_cmin``
+values. ``launches_staged``, ``launches_cluster``, ``launches`` and
+``launches_inkernel`` count the launches of each.
 :func:`visit_count` counts the chunks a pass ordered and stopped by
 tile-level bounds visits.
 The plain version and the launch plumbing here are shared with
@@ -50,9 +55,15 @@ SMEM_BLOCK_LIMIT = 232_448
 SMEM_SM = 233_472
 SMEM_BLOCK_RESERVED = 1024
 
-# Kernel launches: the staged variant (either hoist_cmin), and the global
-# variant with hoisted and with in-kernel chunk minima.
+# CTAs a cluster of the clustered variant may have (8 is the portable
+# limit).
+CLUSTER_SIZES = (2, 4, 8)
+
+# Kernel launches: the staged and the clustered variants (either
+# hoist_cmin), and the global variant with hoisted and with in-kernel chunk
+# minima.
 launches_staged = 0
+launches_cluster = 0
 launches = 0
 launches_inkernel = 0
 
@@ -104,7 +115,8 @@ def _chunk_minima(ft: Tensor) -> Tensor:
     return cm.transpose(1, 2).contiguous()
 
 
-def visit_count(f: Tensor, d: Tensor, tile_q: int = TILE_Q) -> dict:
+def visit_count(f: Tensor, d: Tensor, tile_q: int = TILE_Q,
+                cluster: int = 0) -> dict:
     """What a best-first pass over ``f`` (``[..., n]``) with result ``d``
     visits when it orders and stops by tile-level bounds, in tiles of
     ``tile_q`` positions x 32 lines and chunks of 16 rows, as the kernel
@@ -116,8 +128,10 @@ def visit_count(f: Tensor, d: Tensor, tile_q: int = TILE_Q) -> dict:
 
     Returns ``tiles``, ``chunks`` (visited, summed over tiles),
     ``candidates`` (visited chunk rows x tile positions x tile lines, real
-    ones only) and ``outputs`` (``d.numel()``). Plain PyTorch, on ``f``'s
-    device."""
+    ones only) and ``outputs`` (``d.numel()``); with ``cluster`` CTAs
+    sharing the axis as the clustered variant shares it
+    (:func:`cluster_shares`), also ``remote``: the visited chunks that
+    another CTA than the tile's holds. Plain PyTorch, on ``f``'s device."""
     n = f.shape[-1]
     lines = f.shape[-2] if f.dim() > 1 else 1
     f3 = f.reshape(-1, lines, n)
@@ -148,8 +162,15 @@ def visit_count(f: Tensor, d: Tensor, tile_q: int = TILE_Q) -> dict:
     per = visited.sum(dim=0, dtype=torch.int64)
     candidates = (per * ls[:, None, None] * qs[None, :, None]
                   * rows[None, None, :]).sum()
-    return {"tiles": b * n_lb * n_qt, "chunks": int(per.sum()),
-            "candidates": int(candidates), "outputs": d.numel()}
+    out = {"tiles": b * n_lb * n_qt, "chunks": int(per.sum()),
+           "candidates": int(candidates), "outputs": d.numel()}
+    if cluster:
+        share_ch = cluster_shares(n, cluster)[0]
+        tile_cta = q0[:, 0] // (share_ch * CHUNK)
+        chunk_cta = torch.arange(n_ch, device=dev) // share_ch
+        remote = tile_cta[:, None] != chunk_cta[None, :]
+        out["remote"] = int((per * remote).sum())
+    return out
 
 
 def staged_smem_bytes(n: int, lines_contiguous: bool, warps: int) -> int:
@@ -189,12 +210,80 @@ def staged_warps(n: int, lines_contiguous: bool) -> int:
     return fit_warps(lambda w: staged_smem_bytes(n, lines_contiguous, w))
 
 
+def cluster_shares(n: int, cluster: int):
+    """``(share_ch, chunk_ranges, tile_ranges)`` of the clustered variant on
+    an axis of ``n`` over ``cluster`` CTAs: CTA ``r`` stages chunks
+    ``[r * share_ch, (r + 1) * share_ch)`` (``share_ch = ceil(n_ch /
+    cluster)``; the last shares may be short or empty) and takes the q
+    tiles whose first row it holds. Both lists have one ``range`` per
+    CTA."""
+    n_ch = -(-n // CHUNK)
+    n_qt = -(-n // TILE_Q)
+    share_ch = -(-n_ch // cluster)
+    chunks, tiles = [], []
+    for r in range(cluster):
+        c0 = min(r * share_ch, n_ch)
+        chunks.append(range(c0, min(c0 + share_ch, n_ch)))
+        row0, row1 = r * share_ch * CHUNK, (r + 1) * share_ch * CHUNK
+        tiles.append(range(min(-(-row0 // TILE_Q), n_qt),
+                           -(-min(row1, n) // TILE_Q)))
+    return share_ch, chunks, tiles
+
+
+def cluster_smem_bytes(n: int, lines_contiguous: bool, cluster: int,
+                       warps: int) -> int:
+    """Dynamic shared memory of one CTA of the clustered variant
+    (``cluster_layout`` of csrc/edt_bestfirst.cu): its share of the block
+    (``share_ch`` chunks of :func:`cluster_shares`, laid out as the staged
+    block: rows ``[share16][32]``, or lines ``[32][stride]`` with
+    ``stride`` = 4 mod 32), the minima of all ``n_ch`` chunks of the axis,
+    and one region per warp for the bounds of ``n_ch`` chunks and, with the
+    positions contiguous, its padded ``[32][33]`` output tile."""
+    n_ch = -(-n // CHUNK)
+    share16 = -(-n_ch // cluster) * CHUNK
+    if lines_contiguous:
+        block, region = share16 * WARP_LINES, n_ch
+    else:
+        stride = share16 + (4 if share16 % 32 == 0 else 20)
+        block, region = WARP_LINES * stride, max(n_ch, TILE_Q * (TILE_Q + 1))
+    return 4 * (block + n_ch + warps * region)
+
+
+def cluster_warps(n: int, lines_contiguous: bool, cluster: int) -> int:
+    """Warps per CTA of the clustered variant with ``cluster`` CTAs, or 0
+    where a share does not fit (:func:`fit_warps`)."""
+    return fit_warps(lambda w: cluster_smem_bytes(n, lines_contiguous,
+                                                  cluster, w))
+
+
+def smallest_cluster(n: int, lines_contiguous: bool):
+    """``(cluster, warps)``: the smallest of ``CLUSTER_SIZES`` whose shares
+    fit, with its warps per CTA, or ``(0, 0)`` where none does."""
+    for cluster in CLUSTER_SIZES:
+        warps = cluster_warps(n, lines_contiguous, cluster)
+        if warps:
+            return cluster, warps
+    return 0, 0
+
+
+def cluster_plan(n: int, lines_contiguous: bool):
+    """``(cluster, warps)`` of the clustered variant for an axis of ``n``:
+    :func:`smallest_cluster` wherever the staged block does not fit
+    (:func:`staged_warps` is 0), ``(0, 0)`` where the staged variant runs
+    or no cluster's shares fit (the global variant runs)."""
+    if staged_warps(n, lines_contiguous):
+        return 0, 0
+    return smallest_cluster(n, lines_contiguous)
+
+
 @dataclasses.dataclass(frozen=True)
 class LinePlan:
     """How the kernel takes ``f`` (``[..., lines, n]``): as ``[batch, lines,
     n]``, with the lines (the y pass's layout) or the positions (the z
     pass's) on the contiguous axis; ``copy`` if that view needed a copy;
     ``warps`` per CTA of the staged variant (:func:`staged_warps`), 0 for
+    the others; ``cluster`` CTAs of ``cluster_warps`` warps of the
+    clustered variant (:func:`cluster_plan`), 0 for the others. Neither:
     the global variant."""
     batch: int
     lines: int
@@ -202,15 +291,21 @@ class LinePlan:
     lines_contiguous: bool
     copy: bool
     warps: int
+    cluster: int = 0
+    cluster_warps: int = 0
 
     @property
     def staged(self) -> bool:
         return self.warps > 0
 
+    @property
+    def clustered(self) -> bool:
+        return self.cluster > 0
+
 
 def plan_lines(f: Tensor):
     """``(plan, f3)``: the :class:`LinePlan` of a non-empty ``f`` and the
-    ``[batch, lines, n]`` tensor the staged kernel reads, a view of ``f``
+    ``[batch, lines, n]`` tensor the staged and clustered kernels read, a view of ``f``
     wherever one exists. The positions' layout is taken where the positions
     are contiguous, the lines' where the lines are; otherwise ``f`` is
     copied into the positions' layout."""
@@ -226,12 +321,13 @@ def plan_lines(f: Tensor):
     else:
         f3, copy, lines_contiguous = f3.contiguous(), True, False
     return LinePlan(f3.shape[0], lines, n, lines_contiguous, copy,
-                    staged_warps(n, lines_contiguous)), f3
+                    staged_warps(n, lines_contiguous),
+                    *cluster_plan(n, lines_contiguous)), f3
 
 
 def staged_output(plan: LinePlan, like: Tensor) -> Tensor:
-    """The staged kernel's ``[batch, lines, n]`` output, dense in the
-    plan's layout, so a dense input gets its own strides back."""
+    """The staged (or clustered) kernel's ``[batch, lines, n]`` output,
+    dense in the plan's layout, so a dense input gets its own strides back."""
     if plan.lines_contiguous:
         shape = (plan.batch, plan.n, plan.lines)
     else:
@@ -264,6 +360,25 @@ def _library():
                 if smem(n, int(lc), warps) != staged_smem_bytes(n, lc, warps):
                     raise RuntimeError("edt_bestfirst.cu and edt_bestfirst.py "
                                        "disagree on the staged layout")
+    csmem = lib.edt_bestfirst_cluster_smem
+    csmem.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 3
+    csmem.restype = ctypes.c_longlong
+    for n in (1, 37, 513, 1800, 2048, 4100, 12000):
+        for lc in (False, True):
+            for cluster in CLUSTER_SIZES:
+                for warps in (8, 16):
+                    if csmem(n, int(lc), cluster, warps) != \
+                            cluster_smem_bytes(n, lc, cluster, warps):
+                        raise RuntimeError(
+                            "edt_bestfirst.cu and edt_bestfirst.py disagree "
+                            "on the clustered layout")
+    lib.edt_bestfirst_cluster_max_active.argtypes = (
+        [ctypes.c_longlong] + [ctypes.c_int] * 4)
+    lib.edt_bestfirst_cluster_max_active.restype = ctypes.c_int
+    lib.edt_bestfirst_cluster_launch.argtypes = (
+        [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 9
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    lib.edt_bestfirst_cluster_launch.restype = ctypes.c_int
     lib.edt_bestfirst_launch.argtypes = [ctypes.c_void_p] * 3 + LINES_ARGTYPES
     lib.edt_bestfirst_launch.restype = ctypes.c_int
     lib.edt_bestfirst_staged_launch.argtypes = (
@@ -361,10 +476,77 @@ def parabolic_envelope_last_staged(f: Tensor) -> Tensor:
     return _staged(f, plan, f3)
 
 
+@functools.cache
+def _resident_clusters(n: int, lines_contiguous: bool, cluster: int,
+                       warps: int, device: int) -> int:
+    return _library().edt_bestfirst_cluster_max_active(
+        n, int(lines_contiguous), cluster, warps, device)
+
+
+def launch_cluster(plan: LinePlan, f3: Tensor, out3: Tensor) -> None:
+    """One launch of the clustered variant on the current stream: ``f3`` as
+    :func:`plan_lines` gives it, into ``out3`` (:func:`staged_output`), with
+    ``plan.cluster`` CTAs of ``plan.cluster_warps`` warps. Raises where the
+    device cannot hold one such cluster (``cudaOccupancyMaxActiveClusters``,
+    checked once per shape) or the launch fails."""
+    global launches_cluster
+    device = f3.device.index or 0
+    held = _resident_clusters(plan.n, plan.lines_contiguous, plan.cluster,
+                              plan.cluster_warps, device)
+    if held <= 0:
+        raise RuntimeError(
+            f"the device holds {held} clusters of {plan.cluster} CTAs of "
+            f"{plan.cluster_warps} warps for an axis of {plan.n}")
+    s_b, s_l, s_k = f3.stride()
+    o_b, o_l, o_k = out3.stride()
+    err = _library().edt_bestfirst_cluster_launch(
+        f3.data_ptr(), out3.data_ptr(), plan.batch, plan.n, plan.lines,
+        s_b, s_k, s_l, o_b, o_k, o_l, int(plan.lines_contiguous),
+        plan.cluster, plan.cluster_warps, *_stream_args(f3))
+    if err != 0:
+        raise RuntimeError(f"edt_bestfirst cluster kernel launch failed "
+                           f"(cudaError_t {err})")
+    launches_cluster += 1
+
+
+def _clustered(f: Tensor, plan: LinePlan, f3: Tensor) -> Tensor:
+    out3 = staged_output(plan, f3)
+    launch_cluster(plan, f3, out3)
+    return out3.reshape(f.shape)
+
+
+def parabolic_envelope_last_cluster(f: Tensor,
+                                    cluster: int | None = None) -> Tensor:
+    """The clustered variant on a CUDA tensor ``f``, on the current stream,
+    without synchronizing: with :func:`plan_lines`' cluster where it plans
+    one, else (an axis the staged variant takes) :func:`smallest_cluster`;
+    ``cluster`` forces a size of ``CLUSTER_SIZES``. Raises ``ValueError``
+    where the shares do not fit. The result has ``f``'s strides where ``f``
+    is dense."""
+    _check_input(f)
+    if f.numel() == 0:
+        return torch.empty_like(f)
+    plan, f3 = plan_lines(f)
+    lc = plan.lines_contiguous
+    if cluster is not None:
+        if cluster not in CLUSTER_SIZES:
+            raise ValueError(f"cluster {cluster} not in {CLUSTER_SIZES}")
+        size = (cluster, cluster_warps(plan.n, lc, cluster))
+    elif plan.clustered:
+        size = (plan.cluster, plan.cluster_warps)
+    else:
+        size = smallest_cluster(plan.n, lc)
+    if not size[1]:
+        raise ValueError(f"axis length {plan.n}: the clustered kernel's "
+                         "shares do not fit a cluster's shared memory")
+    plan = dataclasses.replace(plan, cluster=size[0], cluster_warps=size[1])
+    return _clustered(f, plan, f3)
+
+
 def parabolic_envelope_last_global(f: Tensor,
                                    hoist_cmin: bool = True) -> Tensor:
-    """The global variant on a CUDA tensor ``f``, on the current stream,
-    without synchronizing: with ``hoist_cmin`` the chunk minima come from
+    """The global variant on a CUDA tensor ``f`` (any axis length), on the
+    current stream, without synchronizing: with ``hoist_cmin`` the chunk minima come from
     :func:`_chunk_minima`, without it the kernel reduces them itself."""
 
     def launch(ft, out, args):
@@ -388,11 +570,12 @@ def parabolic_envelope_last(f: Tensor, hoist_cmin: bool = True) -> Tensor:
     On a CUDA tensor this launches the kernel (building it at first use) on
     the current stream, without synchronizing, or raises; it never falls
     back. The staged variant runs wherever the axis's line block fits
-    shared memory (:func:`plan_lines`), for either ``hoist_cmin``; longer
-    axes take the global variant, whose ``hoist_cmin`` (as in the JAX
-    package's ``parabolic_envelope_last_pallas_bestfirst``) takes the chunk
-    minima from :func:`_chunk_minima` or, when False, has the kernel reduce
-    them. All give the same bits. On a CPU tensor it runs
+    shared memory, the clustered one on longer axes up to a cluster's reach
+    (:func:`plan_lines`), both for either ``hoist_cmin``; longer axes still
+    take the global variant, whose ``hoist_cmin`` (as in the JAX package's
+    ``parabolic_envelope_last_pallas_bestfirst``) takes the chunk minima
+    from :func:`_chunk_minima` or, when False, has the kernel reduce them.
+    All give the same bits. On a CPU tensor it runs
     :func:`parabolic_envelope_last_plain`."""
     if f.device.type == "cpu":
         return parabolic_envelope_last_plain(f)
@@ -402,4 +585,6 @@ def parabolic_envelope_last(f: Tensor, hoist_cmin: bool = True) -> Tensor:
     plan, f3 = plan_lines(f)
     if plan.staged:
         return _staged(f, plan, f3)
+    if plan.clustered:
+        return _clustered(f, plan, f3)
     return parabolic_envelope_last_global(f, hoist_cmin)

@@ -1,32 +1,65 @@
-"""Times of the full-sweep envelope kernel and the shared-memory gather
-probe on one CUDA card, as one JSON line.
+"""Times of the envelope kernels and the shared-memory gather probe on one
+CUDA card, as one JSON line.
 
     python -m voxelized_geometry_tools_tpu_torch.kernels.kernel_timings LABEL
 
-prints ``KERNEL_TIMINGS {...}``: the full-sweep backend's wrapper
-(``edt_envelope.parabolic_envelope_last``, whichever variant the tree plans)
-on the y and z passes of the main path's 512^3 two-field field, and the
-gather probe (``probes.vmem_gather``, 4096 x 8 table, 100,000 rows) at one
-replica and one per SM, timed queued (``probes.queued_ms``), beside
+prints ``KERNEL_TIMINGS {...}``: the full-sweep, windowed and best-first
+backends' wrappers (``parabolic_envelope_last`` of ``edt_envelope``,
+``edt_windowed`` and ``edt_bestfirst``, whichever variant the tree plans)
+on the y and z passes of the main path's 512^3 two-field field; the
+best-first wrapper with either ``hoist_cmin`` and its forced global variant
+(hoisted minima) on the y and z passes of ``chip_smoke.py``'s [4, 2048,
+2048] grid (a disk and a box), and, where the tree has a clustered variant,
+that variant forced to each cluster size; and the gather probe
+(``probes.vmem_gather``, 4096 x 8 table, 100,000 rows) at one replica and
+one per SM, timed queued (``probes.queued_ms``), beside
 ``torch.index_select`` of one replica's rows, with the card's name and
 power limit and the SM clocks ``nvidia-smi`` read every 20 ms while the
-envelope passes ran. It calls only entry points that every version of the
-port since the probes' queued timing has, so two commits compare in one
-call on one card: unpack the other commit's tree (``git archive REV | tar
-x -C _scratch/parent``) and run, in turns from each tree's root, ``python3
--c "$(cat <this file>)" LABEL``.
+full-sweep passes ran. It calls only entry points that every version of
+the port since the probes' queued timing has (the clustered variant only
+where it exists), so two commits compare in one call on one card: unpack
+the other commit's tree (``git archive REV | tar x -C _scratch/parent``)
+and run, in turns from each tree's root, ``python3 -c "$(cat <this
+file>)" LABEL``.
 """
-
+import functools
 import json
 import subprocess
 import sys
 
 import torch
 
-from voxelized_geometry_tools_tpu_torch.kernels import edt_envelope, probes
+from voxelized_geometry_tools_tpu_torch.kernels import (edt_bestfirst,
+                                                       edt_envelope,
+                                                       edt_windowed, probes)
 from voxelized_geometry_tools_tpu_torch.kernels.edt_timings import (
     sphere_mask, stacked_passes)
 from voxelized_geometry_tools_tpu_torch.kernels.probes import cuda_ms
+
+
+def long_axis_times() -> dict:
+    """The best-first kernel's passes on the [4, 2048, 2048] grid of
+    ``chip_smoke.py``'s ``phase_global_variant``."""
+    n = 2048
+    ax = torch.arange(n, device="cuda", dtype=torch.float32)
+    mask = (((ax[:, None] - 0.4 * n) ** 2 + (ax[None, :] - 0.6 * n) ** 2
+             <= (0.2 * n) ** 2)[None].expand(4, n, n).clone())
+    mask[:, 50:90, 1500:1900] = True
+    fy, dz = stacked_passes(mask)[:2]
+    eb = edt_bestfirst
+    fns = {f"hoist_{h}": functools.partial(eb.parabolic_envelope_last,
+                                           hoist_cmin=h)
+           for h in (True, False)}
+    fns["global"] = eb.parabolic_envelope_last_global
+    if hasattr(eb, "parabolic_envelope_last_cluster"):
+        for c in eb.CLUSTER_SIZES:
+            fns[f"cluster_{c}"] = functools.partial(
+                eb.parabolic_envelope_last_cluster, cluster=c)
+    out = {}
+    for key, fn in fns.items():
+        for name, x in (("y", fy), ("z", dz)):
+            out[f"bestfirst2048_{key}_{name}_ms"] = cuda_ms(lambda: fn(x), 20)
+    return out
 
 
 def main(label: str) -> dict:
@@ -45,7 +78,13 @@ def main(label: str) -> dict:
     finally:
         clocks.terminate()
     out["envelope_sm_mhz"] = [int(v) for v in clocks.communicate()[0].split()]
+    for name, x in (("y", fy), ("z", dz)):
+        out[f"windowed_{name}_ms"] = cuda_ms(
+            lambda: edt_windowed.parabolic_envelope_last(x), 10)
+        out[f"bestfirst_{name}_ms"] = cuda_ms(
+            lambda: edt_bestfirst.parabolic_envelope_last(x), 10)
     del fy, dz
+    out.update(long_axis_times())
     dev = torch.device("cuda")
     full = torch.cuda.get_device_properties(dev).multi_processor_count
     table = probes.integer_table(probes.TABLE_ROWS, probes.WIDTH, dev)
