@@ -950,6 +950,13 @@ def phase_gradients():
         "contract")
 
 
+# The march probe's kernel-vs-plain shapes: (batch, n_steps, replicas
+# beyond one), besides the timed ones: ragged steps, one ray, and a batch
+# whose steps' values outgrow shared memory (chunks).
+MARCH_CASES = ((64, probes.MARCH_STEPS, True), (256, probes.MARCH_STEPS, True),
+               (256, 63, True), (1, 1, True), (1000, 200, False))
+
+
 def probe_cases(full):
     """(name, kernel call, plain call) for each probe: the TPU seeds and
     others, row counts that are not powers of two, the gather over the
@@ -957,9 +964,10 @@ def probe_cases(full):
     and 2048 x 128 accumulators over a cluster with 1 and 1,001 iterations
     (fewer than the cluster's threads, and ragged against them) besides
     the timed counts, dma depths 1/2/8/16 and n_iters == depth (zeros) on
-    the 2^20-row and a 1,000,003-row table, march batches 64/256, one
-    replica and ``full``; integer tables, so every sum is exact and kernel
-    and plain must agree bit for bit."""
+    the 2^20-row and a 1,000,003-row table, the march's MARCH_CASES on
+    4096 x 8, 3001 x 8 and 1000 x 12 tables by its plan and forced to
+    either route, one replica and ``full``; integer tables, so every sum is
+    exact and kernel and plain must agree bit for bit."""
     pr = probes
     dev = torch.device("cuda")
     cases = []
@@ -1003,18 +1011,43 @@ def probe_cases(full):
                                   functools.partial(pr.hbm_dma, table, *args),
                                   functools.partial(pr.hbm_dma_plain, table,
                                                     *args)))
-    for n_rows in (pr.TABLE_ROWS, 3001):
-        table = pr.integer_table(n_rows, pr.WIDTH, dev, seed=n_rows + 1)
-        for batch in pr.MARCH_BATCHES:
+    for n_rows, width in ((pr.TABLE_ROWS, pr.WIDTH), (3001, pr.WIDTH),
+                          (1000, 12)):
+        table = pr.integer_table(n_rows, width, dev, seed=n_rows + 1)
+        for batch, n_steps, many in MARCH_CASES:
             t0 = pr.integer_table(1, batch, dev, seed=batch) * 0.25
-            for reps in (1, full):
-                args = (table, t0, pr.MARCH_STEPS, reps)
-                cases.append((f"vmem_batch_march({n_rows}x{pr.WIDTH}, "
-                              f"batch {batch}, {reps} replicas)",
-                              functools.partial(pr.vmem_batch_march, *args),
-                              functools.partial(pr.vmem_batch_march_plain,
-                                                *args)))
+            for reps in (1, full) if many else (1,):
+                # Computed at the first of its routes' cases, then kept.
+                plain = functools.cache(functools.partial(
+                    pr.vmem_batch_march_plain, table, t0, n_steps, reps))
+                for route in (None,) + pr.MARCH_ROUTES:
+                    cases.append((
+                        f"vmem_batch_march({n_rows}x{width}, batch {batch}, "
+                        f"{n_steps} steps, {reps} replicas, route "
+                        f"{route or 'planned'})",
+                        functools.partial(pr.vmem_batch_march_split, table,
+                                          t0, n_steps, route, None, reps),
+                        plain))
     return cases
+
+
+def march_in_order(table, t0, n_steps, replicas, seed=probes.MARCH_SEED):
+    """The march probe in the kernel's order of adds, step by step on the
+    card: each ray's row summed w = 0, 1, ... in float32 (one rounding an
+    operation, as the kernel, built without contraction), floored, and added
+    into its depth in step order."""
+    batch = t0.shape[-1]
+    idx = probes._replica_indices(seed, replicas, n_steps * batch,
+                                  table.shape[0], table.device)
+    floor = torch.tensor(probes.MARCH_MIN_STEP, device=table.device)
+    t = t0.reshape(1, batch).expand(replicas, batch)
+    for k in range(n_steps):
+        rows = table[idx[:, k * batch:(k + 1) * batch]]
+        d = torch.zeros(replicas, batch, device=table.device)
+        for w in range(table.shape[1]):
+            d = d + rows[..., w] * 0.125
+        t = t + torch.maximum(d, floor)
+    return t
 
 
 def probe_nonintegers(full):
@@ -1027,7 +1060,8 @@ def probe_nonintegers(full):
     them); two launches of each gather (device memory, shared memory) give
     the same bits (their reduction order is fixed by their plans) and agree
     with a float64 sum of the same rows within DMA_REL_TOL of their absolute
-    sum."""
+    sum; two launches of the march by either route give the same bits, the
+    bits of the march in its order of adds (march_in_order; tolerance 0)."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     mask = torch.rand(1, probes.WIDTH, generator=gen, device="cuda") - 0.5
     special = torch.tensor([[0.0, -0.0, float("inf"), -float("inf"), 1e-45,
@@ -1076,10 +1110,55 @@ def probe_nonintegers(full):
             raise AssertionError(f"{name} on a non-integer table: "
                                  f"{worst[name]} of the absolute sum from a "
                                  f"float64 sum, above {DMA_REL_TOL}")
+    t0 = torch.randn(1, 256, generator=gen, device="cuda")
+    for reps in (1, full):
+        ref = march_in_order(small, t0, probes.MARCH_STEPS, reps)
+        for route in probes.MARCH_ROUTES:
+            first, second = (probes.vmem_batch_march_split(
+                small, t0, probes.MARCH_STEPS, route, None, reps)
+                for _ in range(2))
+            if not (torch.equal(first, second) and torch.equal(first, ref)):
+                raise AssertionError(
+                    f"vmem_batch_march on a float table, route {route}, "
+                    f"{reps} replicas: two launches equal "
+                    f"{torch.equal(first, second)}, max abs err from the "
+                    f"in-order march {max_abs_err(first, ref)}")
     log(f"probes non-integer: scatter == plain (bitwise, tolerance 0, on "
         f"special values too); hbm_dma and vmem_gather launches identical, "
         f"within {worst} of the absolute sum from a float64 sum (limit "
-        f"{DMA_REL_TOL})")
+        f"{DMA_REL_TOL}); vmem_batch_march launches identical by either "
+        f"route, == the in-order march (bitwise, tolerance 0)")
+
+
+def march_routes(full):
+    """The march probe at the card's shape: the plan's route and split at
+    each batch for one replica and ``full``, each route's time there
+    (queued, its own default CTAs), and the fixed cost of a launch with no
+    steps (launch, set-up and, staged, the table's stage)."""
+    dev = torch.device("cuda")
+    table = probes.integer_table(probes.TABLE_ROWS, probes.WIDTH, dev)
+    table_bytes = table.numel() * 4
+    limit = probes.max_shared_bytes(dev)
+    for batch in probes.MARCH_BATCHES:
+        t0 = torch.zeros(1, batch, device=dev)
+        for reps in (1, full):
+            plan = probes.march_plan(batch, probes.MARCH_STEPS, reps, full,
+                                     table_bytes=table_bytes,
+                                     block_limit=limit)
+            ms = {route: probes.queued_ms(
+                lambda: probes.vmem_batch_march_split(
+                    table, t0, probes.MARCH_STEPS, route, None, reps))
+                for route in probes.MARCH_ROUTES}
+            log(f"vmem_batch_march batch {batch}, {reps} replicas: plan "
+                f"route {plan.route}, {plan.ctas} CTAs a replica of "
+                f"{plan.threads} threads ({plan.rays} rays x {plan.group} "
+                f"step lanes, chunk {plan.chunk} steps); queued ms by route "
+                f"{json.dumps(ms)}")
+        fixed = {route: probes.queued_ms(
+            lambda: probes.vmem_batch_march_split(table, t0, 0, route, None))
+            for route in (None,) + probes.MARCH_ROUTES}
+        log(f"vmem_batch_march batch {batch}, one replica, no steps (fixed "
+            f"cost, ms queued; None: the plan's): {fixed}")
 
 
 def host_us(fn, reps):
@@ -1134,6 +1213,7 @@ def phase_probes():
     log(f"vmem_gather at one replica by CTAs a replica (ms, queued; the "
         f"plan takes {probes.gather_plan(probes.GATHER_ITERS, probes.WIDTH, 1, full).ctas}): "
         f"{json.dumps(rates['vmem_gather_cta_sweep_ms'])}")
+    march_routes(full)
 
     dev = torch.device("cuda")
     table = probes.integer_table(probes.TABLE_ROWS, probes.WIDTH, dev)

@@ -5,8 +5,8 @@
 //   vmem_gather_split_kernel    <- _vmem_gather_kernel (vmem_gather_bench)
 //   vmem_scatter_cluster_kernel <- _vmem_scatter_kernel (vmem_scatter_bench)
 //   hbm_dma_kernel<DEPTH>       <- _hbm_dma_kernel (hbm_dma_bench)
-//   vmem_batch_march_kernel     <- _vmem_batch_march_kernel
-//                                  (vmem_batch_march_bench)
+//   vmem_batch_march_split_kernel <- _vmem_batch_march_kernel
+//                                    (vmem_batch_march_bench)
 // Each computes what its TPU kernel computes; replica r runs the probe with
 // seed + r into row r of the output (replica 0 is the TPU kernel's result).
 //
@@ -32,9 +32,23 @@
 //   the rows' shared-memory wavefronts (128 bytes a clock an SM, up to
 //   about twice that many for random rows' bank conflicts) with many
 //   replicas; the launch, the stage and the two reductions with one.
-// * march keeps the table in one block's shared memory, one thread a ray,
-//   so a row access is one conflict-free wavefront, bounded by its latency
-//   chain and the index arithmetic.
+// * march: the row of (ray j, step k), and so its step value, depends only
+//   on LCG state k * batch + j + 1, never on t; only the adds into t are
+//   sequential. Rays are split over `ctas` CTAs a replica (never steps, so
+//   nothing is reduced across CTAs); in a CTA, G threads a ray each take
+//   every G-th step of a chunk of steps, several rows in flight a thread
+//   (first state from host jump maps, then the map of G * batch states),
+//   and write max(row sum, 0.001) into a shared [chunk][rays] buffer; after
+//   a barrier one thread a ray adds its chunk into t in step order, so t
+//   gets the sequential chain's bits. Rows come from the table staged in
+//   shared memory by the gather's stage code (route "staged"; register
+//   loads from a full CTA, else bulk copies; 16-byte loads of the rows,
+//   each thread's first load taking the half of its row that spreads a
+//   warp's loads over all bank quads) or straight from device memory
+//   through L1/L2 with read-only 16-byte loads (route "direct": a CTA reads
+//   only its rows). probes.march_plan picks the route and the split. Bound:
+//   with one replica, the launch and one row's latency (direct) or the
+//   stage (staged); with many, the rows' L1/L2 or shared-memory wavefronts.
 // * scatter spreads one replica over a thread block cluster of 8 CTAs (the
 //   portable size; probes.scatter_plan): each CTA owns a contiguous slice
 //   of the accumulator's rows in its shared memory. Thread t of the
@@ -73,6 +87,8 @@ constexpr int kScatterCluster = 8;
 constexpr int kDmaWarps = 16;
 constexpr int kGatherThreads = 1024;
 constexpr uint32_t kBulkChunk = 16384;  // bytes of one bulk copy
+constexpr int kMarchThreads = 1024;     // most threads of a march CTA
+constexpr int kMarchUnroll = 4;         // rows a march thread has in flight
 
 __device__ __forceinline__ uint32_t lcg_next(uint32_t s) {
   return s * kLcgA + kLcgC;
@@ -89,12 +105,6 @@ __device__ __forceinline__ uint32_t lcg_row(uint32_t s, uint32_t n_rows) {
 __device__ __forceinline__ uint32_t magic_div(uint32_t a, uint32_t m,
                                               uint32_t shift) {
   return static_cast<uint32_t>((static_cast<uint64_t>(a) * m) >> shift);
-}
-
-__device__ __forceinline__ void copy_to_shared(float* dst,
-                                               const float* __restrict__ src,
-                                               int count) {
-  for (int i = threadIdx.x; i < count; i += blockDim.x) dst[i] = src[i];
 }
 
 __global__ void empty_kernel() {}
@@ -282,6 +292,73 @@ __device__ void tree_sum(T* buf, uint32_t count, uint32_t pieces) {
   __syncthreads();
 }
 
+// How a CTA stages a table into its shared memory.
+enum class Stage : int {
+  kAsync4 = 0,  // 4-byte cp.async by every thread (any alignment)
+  kBulk = 1,    // bulk copies issued by one thread, completing on an mbarrier
+  kLoads = 2,   // 16-byte read-only loads and shared stores by every thread
+};
+
+// Starts copying the `count` floats of `table` into shared memory at `dst`
+// (kBulk and kLoads: `table` 16-byte aligned, `count` a multiple of 4).
+// kBulk: thread 0 issues bulk copies of kBulkChunk bytes that complete on
+// the mbarrier `bar`. kLoads: eight loads in flight a thread; a CTA of
+// 1,024 threads requests a 128 KiB table at once, which on an H100 beat one
+// thread's bulk copies of it with a CTA on every SM (PERF.md §6). Commits
+// the thread's cp.async group, so stage_wait's wait_group 0 covers it.
+// Every thread of the block calls it.
+__device__ __forceinline__ void stage_start(float4* dst,
+                                            const float* __restrict__ table,
+                                            uint32_t count, Stage how,
+                                            uint64_t* bar) {
+  if (how == Stage::kBulk) {
+    if (threadIdx.x == 0) {
+      const uint32_t b = static_cast<uint32_t>(__cvta_generic_to_shared(bar));
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                   :: "r"(b) : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      const uint32_t bytes = count * 4;
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                   :: "r"(b), "r"(bytes) : "memory");
+      const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+      const char* src = reinterpret_cast<const char*>(table);
+      for (uint32_t off = 0; off < bytes; off += kBulkChunk) {
+        const uint32_t n = min(kBulkChunk, bytes - off);
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+            " [%0], [%1], %2, [%3];\n"
+            :: "r"(d + off), "l"(src + off), "r"(n), "r"(b) : "memory");
+      }
+    }
+  } else if (how == Stage::kLoads) {
+    const float4* t4 = reinterpret_cast<const float4*>(table);
+#pragma unroll 8
+    for (uint32_t i = threadIdx.x; i < count / 4; i += blockDim.x) {
+      dst[i] = __ldg(t4 + i);
+    }
+  } else {
+    float* tab = reinterpret_cast<float*>(dst);
+    for (uint32_t i = threadIdx.x; i < count; i += blockDim.x) {
+      cp_async4(tab + i, table + i);
+    }
+  }
+  cp_async_commit();
+}
+
+// Waits until stage_start's copy has landed; every thread of the block
+// calls it (its barrier also orders the mbarrier's init before the waits).
+__device__ __forceinline__ void stage_wait(uint64_t* bar, Stage how) {
+  cp_async_wait<0>();
+  __syncthreads();
+  if (how == Stage::kBulk) {
+    const uint32_t b = static_cast<uint32_t>(__cvta_generic_to_shared(bar));
+    asm volatile(
+        "{\n .reg .pred p;\n WAIT_%=:\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], 0;\n"
+        " @!p bra WAIT_%=;\n}\n" :: "r"(b) : "memory");
+  }
+}
+
 struct GatherArgs {
   uint32_t n_rows, rows_m, rows_shift;  // n_rows and its magic pair
   uint32_t width, pieces;               // floats and T pieces of a row
@@ -312,34 +389,8 @@ vmem_gather_split_kernel(const float* __restrict__ table,
   __shared__ __align__(8) uint64_t stage_bar;
   const uint32_t replica = blockIdx.x / args.ctas;
   const uint32_t cta = blockIdx.x - replica * args.ctas;
-  const uint32_t count = args.n_rows * args.width;
-  const uint32_t bar =
-      static_cast<uint32_t>(__cvta_generic_to_shared(&stage_bar));
-  if (args.bulk) {
-    if (threadIdx.x == 0) {
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
-                   :: "r"(bar) : "memory");
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-      const uint32_t bytes = count * 4;
-      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                   :: "r"(bar), "r"(bytes) : "memory");
-      const uint32_t dst =
-          static_cast<uint32_t>(__cvta_generic_to_shared(smem4));
-      const char* src = reinterpret_cast<const char*>(table);
-      for (uint32_t off = 0; off < bytes; off += kBulkChunk) {
-        const uint32_t n = min(kBulkChunk, bytes - off);
-        asm volatile(
-            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-            " [%0], [%1], %2, [%3];\n"
-            :: "r"(dst + off), "l"(src + off), "r"(n), "r"(bar) : "memory");
-      }
-    }
-  } else {
-    float* tab = reinterpret_cast<float*>(smem4);
-    for (uint32_t i = threadIdx.x; i < count; i += blockDim.x) {
-      cp_async4(tab + i, table + i);
-    }
-  }
+  const Stage how = args.bulk ? Stage::kBulk : Stage::kAsync4;
+  stage_start(smem4, table, args.n_rows * args.width, how, &stage_bar);
   const uint32_t g = threadIdx.x / args.group;
   const uint32_t c0 = (threadIdx.x - g * args.group) * V;
   uint32_t s = 0u;
@@ -350,15 +401,7 @@ vmem_gather_split_kernel(const float* __restrict__ table,
     rows = share.w;
   }
   T acc[V] = {};
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  if (args.bulk) {
-    asm volatile(
-        "{\n .reg .pred p;\n WAIT_%=:\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], 0;\n"
-        " @!p bra WAIT_%=;\n}\n" :: "r"(bar) : "memory");
-  }
+  stage_wait(&stage_bar, how);
 
   const T* tab = reinterpret_cast<const T*>(smem4) + c0;
 #pragma unroll 2
@@ -532,34 +575,165 @@ hbm_dma_kernel(const float* __restrict__ table, float* __restrict__ out,
   if (threadIdx.x == 0) arrivals[replica] = 0u;
 }
 
-// One thread per ray (blockDim == batch).
-__global__ void vmem_batch_march_kernel(const float* __restrict__ table,
-                                        const float* __restrict__ t0,
-                                        float* __restrict__ out,
-                                        uint32_t n_rows, int width,
-                                        int n_steps, int batch,
-                                        uint32_t seed) {
-  extern __shared__ float tab[];
-  copy_to_shared(tab, table, static_cast<int>(n_rows) * width);
-  __syncthreads();
-  const int j = threadIdx.x;
-  uint32_t s = seed + blockIdx.x;
-  for (int i = 0; i <= j; ++i) s = lcg_next(s);
-  // (a_b, c_b): s -> a_b * s + c_b advances the state by `batch` steps.
-  uint32_t a_b = 1u, c_b = 0u;
-  for (int i = 0; i < batch; ++i) {
-    a_b *= kLcgA;
-    c_b = c_b * kLcgA + kLcgC;
+struct MarchArgs {
+  uint32_t n_rows, rows_m, rows_shift;  // n_rows and its magic pair
+  uint32_t width, batch, n_steps;
+  uint32_t rays;        // R: rays a CTA (the last CTA's past `batch` idle)
+  uint32_t group;       // G: threads a ray; a CTA has R * G threads
+  uint32_t per_thread;  // U: steps a thread takes a chunk of U * G steps
+  uint32_t ctas;        // CTAs a replica
+  uint32_t stride_a, stride_c;  // the LCG map of G * batch states
+  uint32_t seed;
+  uint32_t table_vec4;  // float4s of the staged table (0: route direct)
+  Stage stage;          // how the staged table is copied
+};
+
+// d += each of v's floats * 0.125, in order.
+__device__ __forceinline__ void add_eighths(float& d, const float4& v) {
+  d += v.x * 0.125f;
+  d += v.y * 0.125f;
+  d += v.z * 0.125f;
+  d += v.w * 0.125f;
+}
+
+// A table row's piece, from shared memory (STAGED) or by a read-only load
+// from device memory.
+template <bool STAGED, typename T>
+__device__ __forceinline__ T load_piece(const float* p) {
+  if constexpr (STAGED) {
+    return *reinterpret_cast<const T*>(p);
+  } else {
+    return __ldg(reinterpret_cast<const T*>(p));
   }
-  float t = t0[j];
-  for (int k = 0; k < n_steps; ++k) {
-    const float* row = tab + lcg_row(s, n_rows) * width;
-    float d = 0.0f;
-    for (int w = 0; w < width; ++w) d += row[w] * 0.125f;
-    t += fmaxf(d, 0.001f);
-    s = a_b * s + c_b;
+}
+
+// A row's step value, max(sum_w row[w] * 0.125, 0.001), the sum from +0 in
+// the order w = 0, 1, ...: in float4 pieces (VEC 1, a width that is a
+// multiple of 4) or floats (VEC 0).
+template <bool STAGED, int VEC>
+__device__ __forceinline__ float row_step(const float* row, uint32_t width) {
+  float d = 0.0f;
+  if constexpr (VEC == 1) {
+    for (uint32_t w = 0; w < width; w += 4) {
+      add_eighths(d, load_piece<STAGED, float4>(row + w));
+    }
+  } else {
+    for (uint32_t w = 0; w < width; ++w) {
+      d += load_piece<STAGED, float>(row + w) * 0.125f;
+    }
   }
-  out[static_cast<size_t>(blockIdx.x) * batch + j] = t;
+  return fmaxf(d, 0.001f);
+}
+
+// `ctas` CTAs a replica of R * G threads. Thread t takes ray j = cta * R +
+// t % R (idle where j >= batch) and, of each chunk of U * G steps from c0,
+// steps c0 + g + u * G for u < U (g = t / R; those below n_steps): its
+// first state is starts[batch + g] applied after starts[j] to seed +
+// replica (state g * batch + j + 1 of the replica's sequence), each later
+// one the stride map of the one before. The kMarchUnroll rows of a group
+// of steps are loaded before any is summed. Each step's value goes to
+// steps[k - c0][t % R]; after a barrier thread t < R adds its ray's chunk
+// into t in step order, and a second barrier frees the buffer for the next
+// chunk. VEC 2 is the width of 8 (two float4 loads a row).
+template <bool STAGED, int VEC>
+__global__ void __launch_bounds__(kMarchThreads)
+vmem_batch_march_split_kernel(const float* __restrict__ table,
+                              const float* __restrict__ t0,
+                              float* __restrict__ out,
+                              const uint2* __restrict__ starts,
+                              MarchArgs args) {
+  extern __shared__ float4 smem4[];
+  __shared__ __align__(8) uint64_t stage_bar;
+  if constexpr (STAGED) {
+    stage_start(smem4, table, args.n_rows * args.width, args.stage,
+                &stage_bar);
+  }
+  const uint32_t replica = blockIdx.x / args.ctas;
+  const uint32_t cta = blockIdx.x - replica * args.ctas;
+  const uint32_t rays = args.rays;
+  const uint32_t group = args.group;
+  const uint32_t g = threadIdx.x / rays;
+  const uint32_t r = threadIdx.x - g * rays;
+  const uint32_t j = cta * rays + r;
+  const bool active = j < args.batch;
+  const bool chain = active && g == 0;
+  uint32_t s = 0u;
+  float t = 0.0f;
+  if (active) {
+    const uint2 ray = starts[j];
+    const uint2 step = starts[args.batch + g];
+    s = step.x * (ray.x * (args.seed + replica) + ray.y) + step.y;
+    if (chain) t = t0[j];
+  }
+  const float* tab = STAGED ? reinterpret_cast<const float*>(smem4) : table;
+  float* steps = reinterpret_cast<float*>(smem4 + args.table_vec4);
+  if constexpr (STAGED) stage_wait(&stage_bar, args.stage);
+
+  const uint32_t per = args.per_thread;
+  const uint32_t chunk = per * group;
+  for (uint32_t c0 = 0; c0 < args.n_steps; c0 += chunk) {
+    for (uint32_t u0 = 0; active && u0 < per; u0 += kMarchUnroll) {
+      uint32_t row[kMarchUnroll];
+      bool ok[kMarchUnroll];
+#pragma unroll
+      for (int v = 0; v < kMarchUnroll; ++v) {
+        const uint32_t u = u0 + v;
+        ok[v] = u < per && c0 + g + u * group < args.n_steps;
+        const uint32_t a = (s & 0x80000000u) ? 0u - s : s;
+        row[v] = a - magic_div(a, args.rows_m, args.rows_shift) * args.n_rows;
+        if (u < per) s = args.stride_a * s + args.stride_c;
+      }
+      float d[kMarchUnroll];
+      if constexpr (VEC == 2) {
+        float4 lo[kMarchUnroll], hi[kMarchUnroll];
+#pragma unroll
+        for (int v = 0; v < kMarchUnroll; ++v) {
+          if (!ok[v]) continue;
+          const float* p = tab + row[v] * 8u;
+          if constexpr (STAGED) {
+            // Half b = bit 2 of the row first: a warp's first loads (and
+            // its second) spread over all eight 16-byte bank quads, where
+            // the rows' first halves alone take only the four even ones.
+            const uint32_t b = (row[v] >> 2) & 1u;
+            const float4 x = load_piece<true, float4>(p + 4u * b);
+            const float4 y = load_piece<true, float4>(p + 4u * (b ^ 1u));
+            lo[v] = b ? y : x;
+            hi[v] = b ? x : y;
+          } else {
+            lo[v] = load_piece<false, float4>(p);
+            hi[v] = load_piece<false, float4>(p + 4);
+          }
+        }
+#pragma unroll
+        for (int v = 0; v < kMarchUnroll; ++v) {
+          if (!ok[v]) continue;
+          d[v] = 0.0f;
+          add_eighths(d[v], lo[v]);
+          add_eighths(d[v], hi[v]);
+          d[v] = fmaxf(d[v], 0.001f);
+        }
+      } else {
+#pragma unroll
+        for (int v = 0; v < kMarchUnroll; ++v) {
+          if (ok[v]) {
+            d[v] = row_step<STAGED, VEC>(tab + row[v] * args.width,
+                                         args.width);
+          }
+        }
+      }
+#pragma unroll
+      for (int v = 0; v < kMarchUnroll; ++v) {
+        if (ok[v]) steps[(g + (u0 + v) * group) * rays + r] = d[v];
+      }
+    }
+    __syncthreads();
+    if (chain) {
+      const uint32_t n = min(chunk, args.n_steps - c0);
+      for (uint32_t i = 0; i < n; ++i) t += steps[i * rays + r];
+    }
+    if (c0 + chunk < args.n_steps) __syncthreads();
+  }
+  if (chain) out[replica * args.batch + j] = t;
 }
 
 cudaError_t opt_in_shared(const void* kernel, size_t bytes) {
@@ -621,12 +795,15 @@ int probes_max_shared_bytes(int device) {
 }
 
 // The scatter kernel's threads and CTAs per cluster, the DMA kernel's warps
-// per CTA and the gather kernel's threads per CTA, which the wrapper's
-// plans must use.
+// per CTA, the gather kernel's threads per CTA, and the march kernel's most
+// threads per CTA and rows in flight a thread, which the wrapper's plans
+// must use.
 int probes_scatter_threads() { return kScatterThreads; }
 int probes_scatter_cluster() { return kScatterCluster; }
 int probes_dma_warps() { return kDmaWarps; }
 int probes_gather_threads() { return kGatherThreads; }
+int probes_march_threads() { return kMarchThreads; }
+int probes_march_unroll() { return kMarchUnroll; }
 
 // Clusters of the scatter kernel with `smem` bytes of shared memory a CTA
 // that the device can hold at once (cudaOccupancyMaxActiveClusters); -1 on
@@ -794,20 +971,78 @@ int probe_hbm_dma_launch(const float* table, float* out, float* partials,
   }
 }
 
+// starts: `batch` ray maps (a, c) of j + 1 states, then `group` step maps
+// of g * batch states; (stride_a, stride_c) the map of group * batch
+// states; (rows_m, rows_shift) the magic pair of n_rows; staged: 1 to stage
+// the table in shared memory, 0 to read it from device memory. A CTA's
+// shared memory holds the staged table (rounded up to 16 bytes) and the
+// [per_thread * group][rays] buffer of step values.
 int probe_vmem_batch_march_launch(const float* table, const float* t0,
-                                  float* out, int n_rows, int width,
-                                  int n_steps, int batch, int seed,
-                                  int replicas, int device, void* stream) {
+                                  float* out, const void* starts, int n_rows,
+                                  int width, int batch, int n_steps, int rays,
+                                  int group, int per_thread, int ctas,
+                                  int staged, unsigned rows_m,
+                                  unsigned rows_shift, unsigned stride_a,
+                                  unsigned stride_c, int seed, int replicas,
+                                  int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = static_cast<size_t>(n_rows) * width * sizeof(float);
-  err = opt_in_shared(reinterpret_cast<const void*>(vmem_batch_march_kernel),
-                      smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  vmem_batch_march_kernel<<<replicas, batch, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      table, t0, out, static_cast<uint32_t>(n_rows), width, n_steps, batch,
-      static_cast<uint32_t>(seed));
+  if (rays < 1 || group < 1 || per_thread < 1 || ctas < 1 ||
+      rays * group > kMarchThreads ||
+      static_cast<long long>(ctas) * rays < batch) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  MarchArgs args;
+  args.n_rows = static_cast<uint32_t>(n_rows);
+  args.rows_m = rows_m;
+  args.rows_shift = rows_shift;
+  args.width = static_cast<uint32_t>(width);
+  args.batch = static_cast<uint32_t>(batch);
+  args.n_steps = static_cast<uint32_t>(n_steps);
+  args.rays = static_cast<uint32_t>(rays);
+  args.group = static_cast<uint32_t>(group);
+  args.per_thread = static_cast<uint32_t>(per_thread);
+  args.ctas = static_cast<uint32_t>(ctas);
+  args.stride_a = stride_a;
+  args.stride_c = stride_c;
+  args.seed = static_cast<uint32_t>(seed);
+  const size_t table_bytes = static_cast<size_t>(n_rows) * width * 4;
+  const bool aligned = (reinterpret_cast<uintptr_t>(table) & 15) == 0;
+  // Where aligned: register loads from a full CTA (faster than bulk copies
+  // there: PERF.md §6), else bulk copies, which need no thread to load more
+  // than its share of a full CTA's.
+  args.stage = table_bytes % 16 || !aligned ? Stage::kAsync4
+               : rays * group == kMarchThreads ? Stage::kLoads
+                                               : Stage::kBulk;
+  args.table_vec4 = staged ? static_cast<uint32_t>((table_bytes + 15) / 16)
+                           : 0u;
+  const size_t smem = static_cast<size_t>(args.table_vec4) * 16 +
+                      static_cast<size_t>(per_thread) * group * rays * 4;
+  // Rows in float4 pieces where they start on 16 bytes.
+  const int vec = width % 4 || !(staged || aligned) ? 0 : width == 8 ? 2 : 1;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(static_cast<unsigned>(replicas) * args.ctas);
+  const dim3 block(static_cast<unsigned>(rays * group));
+  const auto* sh = static_cast<const uint2*>(starts);
+  switch ((staged ? 3 : 0) + vec) {
+#define PROBE_MARCH_CASE(CASE, STAGED, VEC) \
+    case CASE: { \
+      const auto kernel = vmem_batch_march_split_kernel<STAGED, VEC>; \
+      err = opt_in_shared(reinterpret_cast<const void*>(kernel), smem); \
+      if (err != cudaSuccess) return static_cast<int>(err); \
+      kernel<<<grid, block, smem, st>>>(table, t0, out, sh, args); \
+      break; \
+    }
+    PROBE_MARCH_CASE(0, false, 0)
+    PROBE_MARCH_CASE(1, false, 1)
+    PROBE_MARCH_CASE(2, false, 2)
+    PROBE_MARCH_CASE(3, true, 0)
+    PROBE_MARCH_CASE(4, true, 1)
+    PROBE_MARCH_CASE(5, true, 2)
+#undef PROBE_MARCH_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

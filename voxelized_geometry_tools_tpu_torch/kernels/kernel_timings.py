@@ -1,5 +1,5 @@
-"""Times of the envelope kernels and the shared-memory gather probe on one
-CUDA card, as one JSON line.
+"""Times of the envelope kernels and the shared-memory gather and
+batched-march probes on one CUDA card, as one JSON line.
 
     python -m voxelized_geometry_tools_tpu_torch.kernels.kernel_timings LABEL
 
@@ -13,11 +13,19 @@ best-first wrapper with either ``hoist_cmin`` and its forced global variant
 that variant forced to each cluster size; and the gather probe
 (``probes.vmem_gather``, 4096 x 8 table, 100,000 rows) at one replica and
 one per SM, timed queued (``probes.queued_ms``), beside
-``torch.index_select`` of one replica's rows, with the card's name and
-power limit and the SM clocks ``nvidia-smi`` read every 20 ms while the
-full-sweep passes ran. It calls only entry points that every version of
-the port since the probes' queued timing has (the clustered variant only
-where it exists), so two commits compare in one call on one card: unpack
+``torch.index_select`` of one replica's rows; the march probe
+(``probes.vmem_batch_march``, 4096 x 8 table, 64 steps) at batches 64 and
+256, one replica and one per SM, and with no steps (its fixed cost), timed
+queued, and, where the tree has the route split, each route forced there,
+both routes at replica counts in between, each route's CTA sweep at one
+replica, and the staged route's fixed cost at one replica per SM by each
+way of staging (no steps: a batch of 1,024 rays fills its CTA, which stages
+by register loads, one of 1,000 does not, which stages by bulk copies);
+with the card's name and power limit and the SM clocks
+``nvidia-smi`` read every 20 ms while the full-sweep passes ran. It calls
+only entry points that every version of the port since the probes' queued
+timing has (the clustered variant and the march's routes only where they
+exist), so two commits compare in one call on one card: unpack
 the other commit's tree (``git archive REV | tar x -C _scratch/parent``)
 and run, in turns from each tree's root, ``python3 -c "$(cat <this
 file>)" LABEL``.
@@ -62,6 +70,43 @@ def long_axis_times() -> dict:
     return out
 
 
+def march_times(full: int) -> dict:
+    """The march probe's queued times (see the module docstring)."""
+    dev = torch.device("cuda")
+    table = probes.integer_table(probes.TABLE_ROWS, probes.WIDTH, dev)
+    split = getattr(probes, "vmem_batch_march_split", None)
+    out = {}
+    for batch in probes.MARCH_BATCHES:
+        t0 = torch.zeros(1, batch, device=dev)
+        key = f"march_b{batch}"
+        for reps in (1, full):
+            out[f"{key}_{reps}_replicas_ms"] = probes.queued_ms(
+                lambda: probes.vmem_batch_march(table, t0, probes.MARCH_STEPS,
+                                                reps))
+        out[f"{key}_no_steps_ms"] = probes.queued_ms(
+            lambda: probes.vmem_batch_march(table, t0, 0))
+        if split is None:
+            continue
+        for route in probes.MARCH_ROUTES:
+            for reps in (1, 8, 33, 66, full):
+                out[f"{key}_{route}_{reps}_replicas_ms"] = probes.queued_ms(
+                    lambda: split(table, t0, probes.MARCH_STEPS, route, None,
+                                  reps))
+            out[f"{key}_{route}_no_steps_ms"] = probes.queued_ms(
+                lambda: split(table, t0, 0, route, None))
+            out[f"{key}_{route}_cta_sweep_ms"] = {
+                ctas: probes.queued_ms(lambda: split(
+                    table, t0, probes.MARCH_STEPS, route, ctas))
+                for ctas in (4, 8, 16, 32, 64, 128) if ctas <= batch}
+    if split is not None:
+        for how, batch in (("loads", 1024), ("bulk", 1000)):
+            t0 = torch.zeros(1, batch, device=dev)
+            out[f"march_staged_{full}_replicas_no_steps_{how}_ms"] = \
+                probes.queued_ms(lambda: split(table, t0, 0, "staged", None,
+                                               full))
+    return out
+
+
 def main(label: str) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_timings: no CUDA device")
@@ -95,6 +140,7 @@ def main(label: str) -> dict:
         probes.GATHER_SEED, probes.GATHER_ITERS, probes.TABLE_ROWS)).to(dev)
     out["index_select_ms"] = probes.queued_ms(
         lambda: torch.index_select(table, 0, rows))
+    out.update(march_times(full))
     out["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -17,10 +17,11 @@ Row indices come from :func:`lcg_indices`, the TPU kernels' generator. Each
 function takes ``replicas``: replica ``r`` runs the probe with seed
 ``seed + r`` into row ``r`` of the output, so ``replicas=1`` computes
 exactly the TPU kernel's result and more replicas measure the whole card.
-On the card the march probe runs one block per replica; the scatter runs
-one thread block cluster per replica (:func:`scatter_plan`), and both
-gathers spread each replica's rows over many CTAs (:func:`gather_plan`,
-:func:`dma_plan`); all three jump ahead in the LCG (:func:`lcg_jump`). On a
+On the card the scatter runs one thread block cluster per replica
+(:func:`scatter_plan`), both gathers spread each replica's rows over many
+CTAs (:func:`gather_plan`, :func:`dma_plan`), and the march spreads each
+replica's rays over CTAs and their steps over threads (:func:`march_plan`);
+all four jump ahead in the LCG (:func:`lcg_jump`). On a
 CUDA tensor a wrapper launches its kernel (building it at first use) or
 raises; on a CPU tensor it runs the plain version. With integer-valued
 tables every sum is exact, so kernels, plain versions and the JAX kernels
@@ -67,8 +68,27 @@ DMA_MAX_DEPTH = 16
 SCATTER_THREADS = 1024
 SCATTER_CLUSTER = 8
 DMA_WARPS = 16
-# The shared-memory gather kernel's threads per CTA (checked as those are).
+# The shared-memory gather kernel's threads per CTA, and the march kernel's
+# most threads per CTA and rows a thread loads before it sums any (checked
+# as those are).
 GATHER_THREADS = 1024
+MARCH_THREADS = 1024
+MARCH_UNROLL = 4
+# The march kernel's routes to the table's rows: staged in each CTA's shared
+# memory, or read from device memory (through L1 and L2).
+MARCH_ROUTES = ("direct", "staged")
+# Shared memory a march CTA keeps for its static variables, besides the
+# staged table and its buffer of step values.
+MARCH_STATIC_BYTES = 64
+# An H100's opt-in shared memory a block (plans made without a device).
+H100_BLOCK_BYTES = 232_448
+# march_plan's defaults: the staged route from this many replicas for each
+# SM on (where the table fits), and each route's CTAs for one replica,
+# divided among the replicas (on an H100 at the probe's shape, one replica
+# ran fastest direct over 64 CTAs, staged over 16, and 132 replicas over
+# one CTA a replica by either route).
+MARCH_STAGED_REPLICAS_PER_SM = 0.5
+MARCH_CTAS = {"direct": 64, "staged": 16}
 # Seeds of successive timed launches lie this far apart (more than any
 # replica count), so each launch of the device-memory probe reads rows the
 # launches before it mostly did not, and finds them cold in L2.
@@ -357,6 +377,94 @@ def gather_plan(n_iters: int, width: int, replicas: int, sm_count: int,
     return GatherPlan(vec, group, groups, ctas, shares)
 
 
+@dataclasses.dataclass(frozen=True)
+class MarchPlan:
+    """One replica's ``batch`` rays over ``ctas`` CTAs of ``rays * group``
+    threads: CTA ``c`` takes rays ``[c * rays, (c + 1) * rays)`` (clipped to
+    the batch), thread ``t`` ray ``t % rays`` and step lane ``g = t //
+    rays``. The steps go in chunks of ``chunk = per_thread * group``: of the
+    chunk from ``c0``, lane ``g`` takes steps ``c0 + g + u * group`` for ``u
+    < per_thread`` (those below ``n_steps``), so a thread's successive steps
+    lie ``group`` apart. ``starts`` is ``[batch + group, 2]`` uint32: the
+    ray maps ``lcg_jump(j + 1)``, then the step maps ``lcg_jump(g *
+    batch)``; a thread's first state is its step map applied after its ray
+    map to the replica's seed (state ``g * batch + j + 1``), each later one
+    ``stride = lcg_jump(group * batch)`` of the one before. Route
+    ``"staged"`` copies the table into each CTA's shared memory,
+    ``"direct"`` reads rows from device memory."""
+    route: str
+    ctas: int
+    rays: int
+    group: int
+    per_thread: int
+    starts: np.ndarray
+    stride: tuple
+
+    @property
+    def threads(self) -> int:
+        return self.rays * self.group
+
+    @property
+    def chunk(self) -> int:
+        return self.per_thread * self.group
+
+    def smem_bytes(self, table_bytes: int) -> int:
+        """A CTA's dynamic shared memory: the staged table (rounded up to
+        16 bytes) and the ``[chunk][rays]`` float32 step values."""
+        table = -(-table_bytes // 16) * 16 if self.route == "staged" else 0
+        return table + 4 * self.chunk * self.rays
+
+
+def march_plan(batch: int, n_steps: int, replicas: int, sm_count: int,
+               route: str | None = None, ctas: int | None = None,
+               table_bytes: int = 0,
+               block_limit: int = H100_BLOCK_BYTES) -> MarchPlan:
+    """Splits each replica's rays over CTAs and their steps over threads,
+    for a table of ``table_bytes`` and ``block_limit`` bytes of shared
+    memory a block. By default the route is ``"staged"`` from
+    ``MARCH_STAGED_REPLICAS_PER_SM`` replicas an SM on, where the table
+    fits beside a step value a ray, else ``"direct"``, and the CTAs a
+    replica are the route's ``MARCH_CTAS`` over the replicas (at least 1);
+    ``ctas``, forced or not, is rounded to what gives every CTA a ray. A
+    ray has up to ``n_steps / MARCH_UNROLL`` threads (as many as the CTA's
+    MARCH_THREADS allow), each ``MARCH_UNROLL`` rows in flight; a chunk
+    holds every step where its values fit shared memory. Raises
+    ``ValueError`` for an unknown route, or a staged table that leaves no
+    room for one step value a ray."""
+    if route not in (None,) + MARCH_ROUTES:
+        raise ValueError(f"route {route!r} is none of {MARCH_ROUTES}")
+    if not 1 <= batch <= MARCH_THREADS:
+        raise ValueError(f"batch {batch} outside [1, {MARCH_THREADS}]")
+    staged_table = -(-table_bytes // 16) * 16
+    if route is None:
+        fits = staged_table + MARCH_STATIC_BYTES + 4 * batch <= block_limit
+        many = replicas >= MARCH_STAGED_REPLICAS_PER_SM * sm_count
+        route = "staged" if fits and many else "direct"
+    if ctas is None:
+        ctas = max(1, round(MARCH_CTAS[route] / replicas))
+    if ctas < 1:
+        raise ValueError(f"ctas={ctas} must be at least 1")
+    rays = -(-batch // min(ctas, batch))
+    ctas = -(-batch // rays)
+    room = block_limit - MARCH_STATIC_BYTES
+    if route == "staged":
+        room -= staged_table
+    group = max(1, min(MARCH_THREADS // rays, -(-n_steps // MARCH_UNROLL),
+                       room // (4 * rays)))
+    per_thread = max(1, min(-(-n_steps // group),
+                            room // (4 * rays * group)))
+    if 4 * rays * group * per_thread > room:
+        raise ValueError(
+            f"a table of {table_bytes} bytes staged in shared memory leaves "
+            f"{room} of {block_limit} bytes, less than one step value for "
+            f"each of {rays} rays")
+    a, c = lcg_jump(np.r_[np.arange(1, batch + 1),
+                          np.arange(group) * batch])
+    stride = tuple(int(x) for x in lcg_jump(group * batch))
+    return MarchPlan(route, ctas, rays, group, per_thread,
+                     np.stack([a, c], axis=1), stride)
+
+
 # -- Kernels ------------------------------------------------------------------
 
 
@@ -368,7 +476,9 @@ def _library():
     for fn, want in ((lib.probes_scatter_threads, SCATTER_THREADS),
                      (lib.probes_scatter_cluster, SCATTER_CLUSTER),
                      (lib.probes_dma_warps, DMA_WARPS),
-                     (lib.probes_gather_threads, GATHER_THREADS)):
+                     (lib.probes_gather_threads, GATHER_THREADS),
+                     (lib.probes_march_threads, MARCH_THREADS),
+                     (lib.probes_march_unroll, MARCH_UNROLL)):
         fn.argtypes = []
         fn.restype = ctypes.c_int
         if fn() != want:
@@ -394,7 +504,8 @@ def _library():
                                  ctypes.c_int, ctypes.c_int,
                                  ctypes.c_int] + tail)
     lib.probe_vmem_batch_march_launch.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + tail)
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_uint32] * 4
+        + [ctypes.c_int] + tail)
     for fn in (lib.probe_empty_launch, lib.probe_vmem_gather_launch,
                lib.probe_vmem_scatter_launch, lib.probe_hbm_dma_launch,
                lib.probe_vmem_batch_march_launch):
@@ -452,6 +563,18 @@ def _gather_shares(n_iters: int, width: int, replicas: int, ctas,
                        torch.cuda.get_device_properties(device)
                        .multi_processor_count, ctas)
     return plan, torch.from_numpy(plan.shares.view(np.int32)).to(device)
+
+
+@functools.lru_cache(maxsize=64)
+def _march_starts(batch: int, n_steps: int, replicas: int, route, ctas,
+                  table_bytes: int, device: torch.device):
+    """The :func:`march_plan` of a launch and its start maps as int32 on
+    ``device`` (made once per shape and device)."""
+    plan = march_plan(batch, n_steps, replicas,
+                      torch.cuda.get_device_properties(device)
+                      .multi_processor_count, route, ctas, table_bytes,
+                      max_shared_bytes(device))
+    return plan, torch.from_numpy(plan.starts.view(np.int32)).to(device)
 
 
 @functools.lru_cache(maxsize=64)
@@ -628,10 +751,28 @@ def empty_kernel(device: torch.device) -> None:
 def vmem_batch_march(table: Tensor, t0: Tensor, n_steps: int,
                      replicas: int = 1, seed: int = MARCH_SEED) -> Tensor:
     """:func:`vmem_batch_march_plain` of a ``[n_rows, width]`` float32 table
-    and ``[1, batch]`` start depths, by the kernel on a CUDA tensor (the
-    table in shared memory, one thread per ray)."""
+    and ``[1, batch]`` start depths, by the kernel on a CUDA tensor: each
+    replica's rays over the CTAs of :func:`march_plan`, their steps' rows
+    read by many threads at once (from the table staged in shared memory or
+    from device memory, as the plan picks), each ray's adds in step order
+    (the sequential chain's bits)."""
     if table.device.type == "cpu":
         return vmem_batch_march_plain(table, t0, n_steps, replicas, seed)
+    return vmem_batch_march_split(table, t0, n_steps, None, None, replicas,
+                                  seed)
+
+
+def vmem_batch_march_split(table: Tensor, t0: Tensor, n_steps: int,
+                           route: str | None, ctas: int | None,
+                           replicas: int = 1,
+                           seed: int = MARCH_SEED) -> Tensor:
+    """:func:`vmem_batch_march` on a CUDA tensor by ``route`` (one of
+    ``MARCH_ROUTES``) with ``ctas`` CTAs a replica (``None``: the plan's
+    choice), for timing each. Raises ``ValueError`` where the table does
+    not fit a block's shared memory (either route, as the probe has always
+    taken it) or a forced staged table leaves no room for the steps."""
+    if table.device.type != "cuda":
+        raise ValueError(f"unsupported device {table.device}")
     _check_input(table, "table", 2)
     _check_input(t0, "t0", 2)
     _check_replicas(replicas)
@@ -640,13 +781,19 @@ def vmem_batch_march(table: Tensor, t0: Tensor, n_steps: int,
     if t0.shape[0] != 1 or not 1 <= batch <= MAX_THREADS:
         raise ValueError(f"t0 must be [1, batch <= {MAX_THREADS}], got "
                          f"{tuple(t0.shape)}")
-    _check_shared(n_rows, width, table.device, "the table")
+    if not 0 <= n_steps < 2 ** 31:
+        raise ValueError(f"n_steps={n_steps} outside [0, 2^31)")
+    dev = table.device
+    _check_shared(n_rows, width, dev, "the table")
     _check_sequences(seed, replicas, n_steps * batch)
-    out = torch.empty(replicas, batch, dtype=torch.float32,
-                      device=table.device)
+    plan, starts = _march_starts(batch, n_steps, replicas, route, ctas,
+                                 n_rows * width * 4, dev)
+    out = torch.empty(replicas, batch, dtype=torch.float32, device=dev)
     _launch("vmem_batch_march", _library().probe_vmem_batch_march_launch,
-            table.data_ptr(), t0.data_ptr(), out.data_ptr(), n_rows, width,
-            n_steps, batch, seed, replicas, device=table.device)
+            table.data_ptr(), t0.data_ptr(), out.data_ptr(),
+            starts.data_ptr(), n_rows, width, batch, n_steps, plan.rays,
+            plan.group, plan.per_thread, plan.ctas, plan.route == "staged",
+            *magic_divisor(n_rows), *plan.stride, seed, replicas, device=dev)
     return out
 
 
