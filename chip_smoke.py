@@ -19,7 +19,12 @@ primitive-rate probes' entry point (``kernels.probes.main``, the
 counterpart of benchmarks/inkernel_microbench.py, with the card's launch
 floor) with each probe held against its plain version, and bench.py's
 shipped early-exit schedule (cone prepass, block-sorted tail, sparse final
-sample) on the sphere and clutter scenes. Prints
+sample) on the sphere and clutter scenes. Last, the pointcloud carve:
+bench.py's config2 cloud and an oblique one into 128^3 through the carve
+kernel, bitwise against the plain walk (on the card and on the CPU) and
+the plain column carve, with the native CPU runtime's rate beside it; and
+the pipeline (carve -> fuse -> EDT -> render, ``reconstruct``) at 512^3
+with four 640x480 cameras through the best-available voxelizer. Prints
 human-readable lines, then a JSON line describing each kernel, then
 ``{"ok": true, "device": ...}`` as the last line. Any failure raises, and
 the script exits non-zero; without a CUDA card it exits non-zero before
@@ -105,7 +110,25 @@ PROBES = {
                          "march_step_ns_per_ray_batch256",
                          probes.MARCH_STEPS * 256),
 }
-LIBRARIES = ("edt_bestfirst", "edt_envelope", "edt_windowed", "probes")
+LIBRARIES = ("edt_bestfirst", "edt_envelope", "edt_windowed", "probes",
+             "carve")
+# The carve kernel replaces no TPU kernel: the JAX package carves with XLA
+# scatters in while-loops (raycast_pointcloud and its column twin).
+CARVE_REPLACES = "voxelized_geometry_tools_tpu/ops/voxelize.py:357"
+# bench.py:221-236's carve (config2): one 640x480 cloud into 128^3 at 0.02 m.
+CARVE_N, CARVE_RES = 128, 0.02
+# The pipeline (ROADMAP items 8 and 9): 512^3 at 0.01 m, four 640x480
+# depth cameras (benchmarks/sharded_rates.py:66-78's cloud, and the same
+# points looking along +x, +y and -z through the grid centre).
+PIPE_N, PIPE_RES = 512, 0.01
+# int32 adds per second on the H100 SXM: 64 a clock per SM (the CUDA C++
+# guide's throughput table), 132 SMs at the 1,980 MHz boost clock. A
+# device-memory atomic costs at least one add; it is priced at this rate.
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# The carve kernel's per-ray inputs (kernels/carve.py::RaySetup): start,
+# final, step, t0, dt (3 x 4 bytes each), hit and end_filled (1 byte
+# each), end_flat (4 bytes).
+CARVE_RAY_BYTES = 5 * 12 + 2 + 4
 # bench.py's shipped render schedule (bench.py:124-128).
 SCHEDULE = dict(early_exit=True, coarse_factor=8, head_steps=0,
                 tail_chunks=32, cone_steps=32, cone_tail_chunks=8)
@@ -194,16 +217,20 @@ def staged_planned(kname, f):
 
 
 def reset_launches():
+    from voxelized_geometry_tools_tpu_torch.kernels import carve
     eb, ee, ew = kernel_modules()
     eb.launches_staged = eb.launches_cluster = 0
     eb.launches = eb.launches_inkernel = 0
     ee.launches_staged = ee.launches = 0
     ew.launches_staged = ew.launches = 0
+    carve.launches = 0
 
 
 def read_launches():
+    from voxelized_geometry_tools_tpu_torch.kernels import carve
     eb, ee, ew = kernel_modules()
-    return {"edt_bestfirst_staged": eb.launches_staged,
+    return {"carve_walk": carve.launches,
+            "edt_bestfirst_staged": eb.launches_staged,
             "edt_bestfirst_cluster": eb.launches_cluster,
             "edt_bestfirst": eb.launches,
             "edt_bestfirst_inkernel": eb.launches_inkernel,
@@ -238,14 +265,21 @@ def counting_calls(module, names, calls):
 def phase_build():
     from voxelized_geometry_tools_tpu_torch.kernels import build
     eb, ee, ew = kernel_modules()
+    from voxelized_geometry_tools_tpu_torch import native
+    from voxelized_geometry_tools_tpu_torch.kernels import carve
     t0 = time.monotonic()
-    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+    with ThreadPoolExecutor(len(LIBRARIES) + 1) as pool:
+        # The native CPU runtime (g++) builds beside the CUDA sources.
+        native_built = pool.submit(native.get_library)
         paths = list(pool.map(build.build, LIBRARIES))
+        if native_built.result() is None:
+            raise RuntimeError("the native CPU runtime did not build")
     for mod in (eb, ee, ew):
         mod._launcher()
     probes._library()
-    log(f"build: {', '.join(LIBRARIES)} in {time.monotonic() - t0:.2f} s "
-        "(in parallel)")
+    carve._library()
+    log(f"build: {', '.join(LIBRARIES)} and the native CPU runtime in "
+        f"{time.monotonic() - t0:.2f} s (in parallel)")
     for name, path in zip(LIBRARIES, paths):
         ptxas = path.with_suffix(".log")
         if not ptxas.exists():
@@ -1455,6 +1489,356 @@ def phase_render_schedule(spec, sdf, table, camera, fixed):
             f"time (idle share {1.0 - busy / ms:.3f})")
 
 
+# -- Carving and the pipeline -------------------------------------------------
+
+
+def config2_points():
+    """bench.py:221-236's camera-frame points: a 640x480 depth image of a
+    rippled surface 2.0-2.4 m away."""
+    cu, cv = np.meshgrid(np.linspace(-0.5, 0.5, 640),
+                         np.linspace(-0.4, 0.4, 480), indexing="ij")
+    cdep = 2.2 + 0.2 * np.sin(6 * cu) * np.cos(6 * cv)
+    return np.stack([cu * cdep, cv * cdep, cdep],
+                    -1).reshape(-1, 3).astype(np.float32)
+
+
+def config2_cloud(device):
+    """bench.py:221-236's carve cloud: the camera at (1.28, 1.28, -1.0)
+    looking +z into 128^3 at 0.02 m."""
+    from voxelized_geometry_tools_tpu_torch.ops import voxelize
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, 3] = (1.28, 1.28, -1.0)
+    return voxelize.PointCloud.create(config2_points(), pose, device=device)
+
+
+def look_along(direction, position):
+    """A camera rotation (+z forward) looking along ``direction``, at
+    ``position`` (benchmarks/carve_oblique.py:48-67's frame)."""
+    fwd = np.asarray(direction, np.float64)
+    fwd = fwd / np.linalg.norm(fwd)
+    up = np.array([0.0, 0.0, 1.0])
+    if abs(fwd @ up) > 0.9:
+        up = np.array([0.0, 1.0, 0.0])
+    right = np.cross(up, fwd)
+    right /= np.linalg.norm(right)
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, 0], pose[:3, 1], pose[:3, 2] = right, np.cross(fwd, right), fwd
+    pose[:3, 3] = position
+    return pose
+
+
+def oblique_cloud(device):
+    """benchmarks/carve_oblique.py:48-67's make_cloud((1, 1, 1)): the
+    config2 camera turned to 45 degrees to every grid axis, 1.8 m from the
+    128^3 grid's centre."""
+    from voxelized_geometry_tools_tpu_torch.ops import voxelize
+    fwd = np.ones(3) / np.sqrt(3.0)
+    pose = look_along(fwd, np.full(3, 1.28) - 1.8 * fwd)
+    return voxelize.PointCloud.create(config2_points(), pose, device=device)
+
+
+def pipeline_clouds(device):
+    """The pipeline's four 640x480 cameras: benchmarks/sharded_rates.py:
+    66-78's cloud (rng 0, looking +z from 0.2 of the grid below it), and
+    the same points with the pose turned to look along +x, +y and -z
+    through the grid centre from the same distance outside it."""
+    from voxelized_geometry_tools_tpu_torch.ops import voxelize
+    n, res = PIPE_N, PIPE_RES
+    rng = np.random.default_rng(0)
+    w, h = IMG_W, IMG_H
+    uv = np.stack(np.meshgrid(
+        (np.arange(w) - w / 2) / 600.0, (np.arange(h) - h / 2) / 600.0,
+        indexing="xy"), -1)
+    depth = (0.55 * n * res) * (1.0 + 0.1 * rng.standard_normal((h, w)))
+    pts = np.concatenate([uv * depth[..., None], depth[..., None]],
+                         -1).reshape(-1, 3).astype(np.float32)
+    center = np.full(3, n * res / 2)
+    away = n * res / 2 + 0.2 * n * res
+    poses = []
+    for axis, sign in ((2, 1.0), (0, 1.0), (1, 1.0), (2, -1.0)):
+        fwd = np.zeros(3)
+        fwd[axis] = sign
+        if (axis, sign) == (2, 1.0):
+            pose = np.eye(4, dtype=np.float32)
+            pose[:3, 3] = center - away * fwd
+        else:
+            pose = look_along(fwd, center - away * fwd)
+        poses.append(pose)
+    return [voxelize.PointCloud.create(pts, p, max_range=2.0 * n * res,
+                                       device=device) for p in poses]
+
+
+def grids_equal(a, b):
+    return (torch.equal(a.seen_free.cpu(), b.seen_free.cpu())
+            and torch.equal(a.seen_filled.cpu(), b.seen_filled.cpu()))
+
+
+def carve_fn(spec, setup, n_steps, run):
+    """One carve of ``setup`` into fresh grids by ``run`` (the kernel or
+    the plain walk): the grids zeroed, then carved."""
+    free = torch.empty(spec.num_total, dtype=torch.int32, device="cuda")
+    filled = torch.empty_like(free)
+
+    def fn():
+        free.zero_()
+        filled.zero_()
+        run(spec.counts, setup, n_steps, free, filled)
+    return fn
+
+
+def carve_bound(spec, setup, visits):
+    """The carve's least time on the H100: its bytes (each ray's inputs
+    read once, both int32 grids written once) at the HBM rate against its
+    visits, each an int32 device-memory atomic, at the int32 add rate."""
+    n_bytes = setup.hit.shape[0] * CARVE_RAY_BYTES + 2 * 4 * spec.num_total
+    b = n_bytes / HBM_BYTES_PER_S * 1e3
+    o = visits / INT32_OPS_PER_S * 1e3
+    return (b, "bytes") if b >= o else (o, "operations")
+
+
+def phase_carve():
+    """bench.py's config2 carve and the oblique camera at 128^3: the kernel
+    bitwise against the plain walk (on the card and, from the same points,
+    on the CPU), the plain column carve (run axis 2, pick_run_axis's choice,
+    the diff accumulator) and the card's ray setup against the CPU's; the
+    kernel's, the native CPU runtime's and the plain carves' rates."""
+    from voxelized_geometry_tools_tpu_torch import GridSpec, native
+    from voxelized_geometry_tools_tpu_torch.kernels import carve
+    from voxelized_geometry_tools_tpu_torch.ops import voxelize
+
+    spec = GridSpec.from_voxel_counts(CARVE_RES, (CARVE_N,) * 3)
+    eye = torch.eye(4, device="cuda")
+    n_steps = carve.segment_steps(3 * CARVE_N + 2)
+    for name, make in (("config2", config2_cloud),
+                       ("oblique (1, 1, 1)", oblique_cloud)):
+        cloud = make("cuda")
+        n_rays = cloud.points.shape[0]
+        before = carve.launches
+        got = voxelize.raycast_pointcloud(spec, eye, cloud)
+        torch.cuda.synchronize()
+        if carve.launches != before + 1:
+            raise AssertionError(f"{name}: {carve.launches - before} carve "
+                                 "launches, expected 1")
+        axis = voxelize.pick_run_axis(cloud, eye)
+        t0 = time.monotonic()
+        refs = {"plain walk": voxelize.raycast_pointcloud(
+            spec, eye, cloud, backend="plain")}
+        torch.cuda.synchronize()
+        walk_ms = (time.monotonic() - t0) * 1e3
+        for a in sorted({2, axis}, key=str):
+            refs[f"column carve run_axis={a!r}"] = \
+                voxelize.raycast_pointcloud_columns(spec, eye, cloud,
+                                                    run_axis=a)
+        refs["column carve diff"] = voxelize.raycast_pointcloud_columns(
+            spec, eye, cloud, run_axis=axis, accumulate="diff")
+        host = voxelize.PointCloud.create(cloud.points.cpu(),
+                                          cloud.origin_transform.cpu(),
+                                          float(cloud.max_range))
+        t0 = time.monotonic()
+        refs["CPU plain walk"] = voxelize.raycast_pointcloud(
+            spec, eye.cpu(), host)
+        cpu_walk_s = time.monotonic() - t0
+        for what, ref in refs.items():
+            if not grids_equal(got, ref):
+                raise AssertionError(f"{name}: the carve kernel differs from "
+                                     f"the {what}")
+        dev_setup = voxelize.ray_setup(spec, eye, cloud)
+        cpu_setup = voxelize.ray_setup(spec, eye.cpu(), host)
+        hit = cpu_setup.hit
+        for field in dev_setup._fields:
+            # Rays that are not walked may hold any index (a float to int
+            # conversion of NaN differs between devices).
+            if not torch.equal(getattr(dev_setup, field).cpu()[hit],
+                               getattr(cpu_setup, field)[hit]) \
+                    or not torch.equal(dev_setup.hit.cpu(), hit):
+                raise AssertionError(f"{name}: the card's ray setup differs "
+                                     f"from the CPU's in {field}")
+        visits = carve.count_visits(spec.counts, dev_setup, n_steps)
+        fn = carve_fn(spec, dev_setup, n_steps, carve.carve_kernel)
+        kernel_ms = cuda_ms(fn, 20)
+        wrapper_ms = cuda_ms(
+            lambda: voxelize.raycast_pointcloud(spec, eye, cloud), 10)
+        t0 = time.monotonic()
+        voxelize.raycast_pointcloud_columns(spec, eye, cloud, run_axis=axis)
+        torch.cuda.synchronize()
+        cols_ms = (time.monotonic() - t0) * 1e3
+        native_ms = None
+        if name == "config2":
+            # The camera's rotation is the identity: grid-frame points are
+            # the camera's plus its position.
+            origin = np.array([1.28, 1.28, -1.0], np.float32)
+            pts = cloud.points.cpu().numpy() + origin
+            native.raycast(origin, pts, np.inf, spec.counts, CARVE_RES)
+            t0 = time.monotonic()
+            reps = 3
+            for _ in range(reps):
+                nf, nd = native.raycast(origin, pts, np.inf, spec.counts,
+                                        CARVE_RES)
+            native_ms = (time.monotonic() - t0) / reps * 1e3
+        bound_ms, bound_by = carve_bound(spec, dev_setup, visits)
+        log(f"carve {name}: {n_rays} rays into {CARVE_N}^3, kernel bitwise "
+            f"equal to {', '.join(refs)}, setup equal to the CPU's; "
+            f"{visits} visits ({visits / n_rays:.1f} a ray); kernel "
+            f"{kernel_ms:.4f} ms = {n_rays / (kernel_ms / 1e3):.4e} rays/s "
+            f"({visits / (kernel_ms / 1e3):.4e} visits/s, bound "
+            f"{bound_ms:.4f} ms by {bound_by}); raycast_pointcloud "
+            f"(setup + kernel) {wrapper_ms:.4f} ms = "
+            f"{n_rays / (wrapper_ms / 1e3):.4e} rays/s; plain walk one call "
+            f"{walk_ms:.1f} ms; plain column carve "
+            f"run_axis={axis!r} one call {cols_ms:.1f} ms; CPU plain walk "
+            f"{cpu_walk_s:.2f} s"
+            + ("" if native_ms is None else
+               f"; native CPU runtime ({native.hardware_threads()} threads) "
+               f"{native_ms:.2f} ms = {n_rays / (native_ms / 1e3):.4e} "
+               "rays/s"))
+
+
+def filled_invariant(spec, cloud):
+    """Rays whose endpoint the kernel must mark filled: finite, not
+    range-clipped, endpoint in the grid (grid frame = world frame here),
+    computed apart from the carve's setup."""
+    from voxelized_geometry_tools_tpu_torch.core import transforms
+    pts = cloud.points
+    p = transforms.apply_isometry(cloud.origin_transform, pts)
+    ray = p - cloud.origin_transform[:3, 3]
+    length = torch.sqrt((ray.double() ** 2).sum(-1))
+    idx = torch.floor(p / spec.resolution).long()
+    inside = ((idx >= 0) & (idx < PIPE_N)).all(-1)
+    finite = torch.isfinite(pts).all(-1)
+    return int((finite & inside & (length <= float(cloud.max_range))).sum())
+
+
+def phase_pipeline(camera):
+    """ROADMAP items 8 and 9 at full size: four 640x480 clouds carved into
+    512^3 (0.5 static occupancy) by the best-available voxelizer (the
+    carve kernel), fused, EDT, and a 64-step render from bench.py's
+    camera, through ``reconstruct``; each camera's kernel grids bitwise
+    against the plain column carve, the fused occupancy against
+    combine_and_filter of those grids, the filled-count invariant, and the
+    phase times and peak device memory."""
+    from voxelized_geometry_tools_tpu_torch import GridSpec, OccupancyMap
+    from voxelized_geometry_tools_tpu_torch.kernels import carve
+    from voxelized_geometry_tools_tpu_torch.models import fusion_pipeline
+    from voxelized_geometry_tools_tpu_torch.ops import (backends, edt, render,
+                                                        voxelize)
+
+    spec = GridSpec.from_voxel_counts(PIPE_RES, (PIPE_N,) * 3)
+    env = OccupancyMap.create(spec, default_occupancy=0.5, device="cuda")
+    clouds = pipeline_clouds("cuda")
+    logs = []
+    vox = backends.make_best_available_pointcloud_voxelizer({}, logs.append)
+    if not isinstance(vox, backends.AcceleratorPointCloudVoxelizer) \
+            or vox.device.type != "cuda":
+        raise AssertionError(f"best available voxelizer: {vox} ({logs})")
+    log(f"pipeline voxelizer: {'; '.join(logs)}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runtimes = []
+    reset_launches()
+    t0 = time.monotonic()
+    with torch.no_grad():
+        out = fusion_pipeline.reconstruct(env, clouds, camera, voxelizer=vox,
+                                          runtime_log_fn=runtimes.append)
+    torch.cuda.synchronize()
+    step_s = time.monotonic() - t0
+    counts = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    if counts["carve_walk"] != len(clouds):
+        raise AssertionError(f"the pipeline launched the carve kernel "
+                             f"{counts['carve_walk']} times, expected "
+                             f"{len(clouds)}")
+    if counts["edt_bestfirst_staged"] != 2:
+        raise AssertionError(f"the pipeline's EDT launches: {counts}")
+    occ = out.occupancy_map.occupancy
+    values = set(torch.unique(occ).tolist())
+    if not values <= {0.0, 0.5, 1.0} or len(values) != 3:
+        raise AssertionError(f"fused occupancy values {values}")
+    res = out.render_result
+    hit_frac = float(res.hit.float().mean())
+    if not hit_frac > 0.0 or not bool(
+            torch.isfinite(res.depth[res.hit]).all()):
+        raise AssertionError(f"pipeline render: hit fraction {hit_frac}")
+    if not bool(torch.isfinite(out.sdf.distances).all()):
+        raise AssertionError("pipeline SDF is not finite")
+    # Phase times apart (each synchronized): the EDT and the render again.
+    with torch.no_grad():
+        t0 = time.monotonic()
+        sdf = edt.extract_sdf_from_occupancy(occ, spec, env.origin_transform)
+        torch.cuda.synchronize()
+        edt_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        again = render.render_depth(sdf, camera, num_steps=NUM_STEPS)
+        torch.cuda.synchronize()
+        render_s = time.monotonic() - t0
+    if not torch.equal(sdf.distances, out.sdf.distances) or not torch.equal(
+            again.depth, res.depth):
+        raise AssertionError("the pipeline's EDT or render is not repeatable")
+    del sdf, again
+    log(f"pipeline {PIPE_N}^3, {len(clouds)} cameras ("
+        f"{sum(c.points.shape[0] for c in clouds)} rays): step "
+        f"{step_s * 1e3:.1f} ms (carve {runtimes[0].raycasting_time * 1e3:.1f}"
+        f" ms, filter {runtimes[0].filtering_time * 1e3:.1f} ms; EDT alone "
+        f"{edt_s * 1e3:.1f} ms, render alone {render_s * 1e3:.1f} ms); peak "
+        f"device memory {peak / 2 ** 30:.3f} GiB; launches {counts}; "
+        f"occupancy free/unknown/filled "
+        f"{[int((occ == v).sum()) for v in (0.0, 0.5, 1.0)]}; render hit "
+        f"fraction {hit_frac:.6f}")
+
+    # Each camera's kernel grids against the plain column carve.
+    eye = env.origin_transform
+    n_steps = carve.segment_steps(3 * PIPE_N + 2)
+    plain_free, plain_filled = [], []
+    first = None
+    for i, cloud in enumerate(clouds):
+        got = voxelize.raycast_pointcloud(spec, eye, cloud, backend="cuda")
+        axis = voxelize.pick_run_axis(cloud, eye)
+        t0 = time.monotonic()
+        ref = voxelize.raycast_pointcloud_columns(
+            spec, eye, cloud, run_axis=axis, ray_chunk=cloud.points.shape[0])
+        torch.cuda.synchronize()
+        cols_s = time.monotonic() - t0
+        if not grids_equal(got, ref):
+            raise AssertionError(f"camera {i}: the carve kernel differs from "
+                                 f"the plain column carve")
+        filled = int(got.seen_filled.sum())
+        want = filled_invariant(spec, cloud)
+        if filled != want:
+            raise AssertionError(f"camera {i}: {filled} filled marks, "
+                                 f"expected {want}")
+        log(f"pipeline camera {i}: kernel bitwise equal to the plain column "
+            f"carve (run_axis={axis!r}, one call {cols_s * 1e3:.1f} ms); "
+            f"filled marks {filled} = finite unclipped in-grid rays; free "
+            f"marks {int(got.seen_free.sum())}")
+        plain_free.append(ref.seen_free)
+        plain_filled.append(ref.seen_filled)
+        if first is None:
+            first = voxelize.ray_setup(spec, eye, cloud)
+        del got, ref
+    fused = voxelize.combine_and_filter(
+        voxelize.FilterOptions(), torch.stack(plain_free),
+        torch.stack(plain_filled), env.occupancy)
+    if not torch.equal(fused, occ):
+        raise AssertionError("the pipeline's fused occupancy differs from "
+                             "combine_and_filter of the plain grids")
+    del plain_free, plain_filled, fused
+
+    # The kernel at the main path's shape (camera 0): one carve into fresh
+    # 512^3 grids, against the plain walk on the same setup, and its bound.
+    visits = carve.count_visits(spec.counts, first, n_steps)
+    fn = carve_fn(spec, first, n_steps, carve.carve_kernel)
+    ms = cuda_ms(fn, 10)
+    fn_plain = carve_fn(spec, first, n_steps, carve.carve_plain)
+    plain_ms = cuda_ms(fn_plain, 1)
+    bound_ms, bound_by = carve_bound(spec, first, visits)
+    n_rays = first.hit.shape[0]
+    log(f"carve kernel, pipeline camera 0: {ms:.4f} ms = "
+        f"{n_rays / (ms / 1e3):.4e} rays/s, {visits} visits "
+        f"({visits / (ms / 1e3):.4e} visits/s); plain walk {plain_ms:.1f} ms;"
+        f" bound {bound_ms:.4f} ms by {bound_by}")
+    return {"launches": counts["carve_walk"], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
 def main():
     name = phase_device()
     phase_build()
@@ -1478,6 +1862,8 @@ def main():
     err_large = phase_large_grid()
     (probe_launches, probe_errs, probe_ms, probe_plain_ms, probe_library_ms,
      probe_bounds) = phase_probes()
+    phase_carve()
+    carve_row = phase_pipeline(camera)
     plain_512 = t_edt["plain_y"] + t_edt["plain_z"]
     kernels = []
     for kname, (source, replaces) in KERNELS.items():
@@ -1525,6 +1911,17 @@ def main():
             "bound_by": probe_bounds[kname][1],
             "library_ms": probe_library_ms[kname],
         })
+    # The carve kernel: the pipeline's launches; its time, the plain walk's
+    # and its bound on the pipeline's first camera at 512^3. Every
+    # comparison of it is bitwise (a difference raises). No single PyTorch
+    # call computes the walk.
+    kernels.append({
+        "name": "carve_walk", "route": "cuda", "source": CSRC + "carve.cu",
+        "replaces": CARVE_REPLACES, "launches": carve_row["launches"],
+        "max_abs_err": 0.0, "ms": carve_row["ms"],
+        "plain_ms": carve_row["plain_ms"], "bound_ms": carve_row["bound_ms"],
+        "bound_by": carve_row["bound_by"], "library_ms": None,
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -175,8 +175,9 @@ def test_kernel_sources_include_only_shipped_headers():
         "voxelized_geometry_tools_tpu_torch.kernels"]
     assert "csrc/*.cu" in data and "csrc/*.cuh" in data
     sources = sorted(build.SRC_DIR.glob("*.cu"))
-    assert {s.stem for s in sources} == {"edt_bestfirst", "edt_envelope",
-                                         "edt_windowed", "probes"}
+    assert {s.stem for s in sources} == {"carve", "edt_bestfirst",
+                                         "edt_envelope", "edt_windowed",
+                                         "probes"}
     for src in sources:
         for inc in re.findall(r'#include\s+"([^"]+)"', src.read_text()):
             assert inc.endswith(".cuh") and (build.SRC_DIR / inc).is_file()

@@ -148,6 +148,10 @@ def test_port_imports_no_jax():
     JAX package. (sys.modules cannot tell: jax may be preloaded.)"""
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
+    for module in ("native/loader.py", "ops/voxelize.py", "ops/backends.py",
+                   "models/fusion_pipeline.py", "kernels/carve.py",
+                   "interop.py"):
+        assert PORT / module in files
     for path in files:
         bad = _imported_roots(path) & {"jax", "jaxlib",
                                        "voxelized_geometry_tools_tpu"}

@@ -13,7 +13,11 @@ Ported so far (the main path): exact two-field EDT, dense or slab-streamed
 (1024^3 on one card), with every envelope backend -> SignedDistanceField
 -> corner-brick table -> sphere-traced depth render (the fixed-step march,
 differentiable in voxel values and camera pose, and the shipped early-exit
-schedule: cone prepass, block-sorted tail, sparse final sample).
+schedule: cone prepass, block-sorted tail, sparse final sample). Then
+pointcloud carving and fusion (``ops/voxelize.py``, ``ops/backends.py``:
+the hand-written carve kernel ``kernels/csrc/carve.cu`` on the card, the
+native C++ runtime in ``native/``) and the pipeline carve -> fuse -> EDT ->
+render (``models/fusion_pipeline.reconstruct``).
 """
 
 from .core.grid import GridSpec

@@ -138,6 +138,11 @@ class GridSpec:
         counts = constant(tuple(self.counts), index.dtype, index.device)
         return torch.all((index >= 0) & (index < counts), dim=-1)
 
+    def flat_index(self, index: Tensor) -> Tensor:
+        """Row-major (x-major, z-fastest) flat index of [..., 3]."""
+        ny, nz = self.counts[1], self.counts[2]
+        return index[..., 0] * (ny * nz) + index[..., 1] * nz + index[..., 2]
+
 
 def get_index_values(data: Tensor, index: Tensor, oob_value) -> Tensor:
     """Gather ``data[index]``; any out-of-bounds lane returns ``oob_value``

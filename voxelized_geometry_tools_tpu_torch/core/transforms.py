@@ -38,6 +38,16 @@ def invert_isometry(m: Tensor) -> Tensor:
     return torch.cat([torch.cat([rt, t[:, None]], dim=1), bottom], dim=0)
 
 
+def compose(a: Tensor, b: Tensor) -> Tensor:
+    """The product ``a @ b`` of two ``[4, 4]`` transforms, written as sums
+    of products in ``k`` order (no matmul, whose order of sums is the
+    library's)."""
+    out = a[:, :1] * b[:1, :]
+    for k in range(1, 4):
+        out = out + a[:, k:k + 1] * b[k:k + 1, :]
+    return out
+
+
 def rotate_vector(m: Tensor, vectors: Tensor) -> Tensor:
     """Apply only the rotation part to vector(s) of shape ``[..., 3]``.
 

@@ -12,9 +12,10 @@ import torch
 
 from .core.device import default_device
 from .core.grid import GridSpec
-from .core.maps import SignedDistanceField
+from .core.maps import OccupancyMap, SignedDistanceField
 from .ops.render import PinholeCamera
 from .ops.sdf_query import CornerTable
+from .ops.voxelize import PointCloud
 
 
 def grid_spec_from_fields(counts: Sequence[int], resolution: float,
@@ -69,3 +70,28 @@ def corner_table_from_numpy(rows: np.ndarray, device=None) -> CornerTable:
         raise ValueError(f"corner table rows must be [N, 8], got "
                          f"{rows.shape}")
     return CornerTable(rows=torch.tensor(rows, device=default_device(device)))
+
+
+def pointcloud_from_numpy(points: np.ndarray, origin_transform: np.ndarray,
+                          max_range=float("inf"), device=None) -> PointCloud:
+    """A ``PointCloud`` from a JAX ``PointCloud``'s leaves (points, pose,
+    max range), on ``device`` (None: the CUDA card)."""
+    return PointCloud.create(np.asarray(points, np.float32),
+                             np.asarray(origin_transform, np.float32),
+                             max_range=float(np.asarray(max_range)),
+                             device=default_device(device))
+
+
+def occupancy_map_from_numpy(spec: GridSpec, occupancy: np.ndarray,
+                             origin_transform: np.ndarray, frame: str = "",
+                             device=None) -> OccupancyMap:
+    """An ``OccupancyMap`` holding a copy of ``occupancy`` (float32) with
+    the given pose, on ``device`` (None: the CUDA card)."""
+    dev = default_device(device)
+    occ = torch.tensor(np.asarray(occupancy, np.float32), device=dev)
+    if tuple(occ.shape) != tuple(spec.counts):
+        raise ValueError(f"occupancy shape {tuple(occ.shape)} != spec counts "
+                         f"{spec.counts}")
+    base = OccupancyMap.create(spec, np.asarray(origin_transform), frame,
+                               device=dev)
+    return base.replace(occupancy=occ)

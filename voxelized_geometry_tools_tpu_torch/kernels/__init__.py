@@ -4,4 +4,5 @@ Sources live in ``csrc/`` and are compiled with ``nvcc`` at first launch
 (:mod:`.build`); importing this package builds nothing.
 """
 
-from . import edt_bestfirst, edt_envelope, edt_windowed, probes  # noqa: F401
+from . import (carve, edt_bestfirst, edt_envelope,  # noqa: F401
+               edt_windowed, probes)

@@ -1,1 +1,1 @@
-from . import edt, render, sdf_query  # noqa: F401
+from . import backends, edt, render, sdf_query, voxelize  # noqa: F401

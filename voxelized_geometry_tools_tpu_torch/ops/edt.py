@@ -170,7 +170,7 @@ def _sqrt(x: Tensor, dtype) -> Tensor:
     float64 sqrt is IEEE."""
     x64 = x.to(torch.float64)
     if x64.device.type == "cpu":
-        return torch.from_numpy(np.sqrt(x64.numpy())).to(dtype)
+        return torch.from_numpy(np.asarray(np.sqrt(x64.numpy()))).to(dtype)
     return torch.sqrt(x64).to(dtype)
 
 
