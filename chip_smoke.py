@@ -20,11 +20,14 @@ counterpart of benchmarks/inkernel_microbench.py, with the card's launch
 floor) with each probe held against its plain version, and bench.py's
 shipped early-exit schedule (cone prepass, block-sorted tail, sparse final
 sample) on the sphere and clutter scenes. Last, the pointcloud carve:
-bench.py's config2 cloud and an oblique one into 128^3 through the carve
-kernel, bitwise against the plain walk (on the card and on the CPU) and
-the plain column carve, with the native CPU runtime's rate beside it; and
-the pipeline (carve -> fuse -> EDT -> render, ``reconstruct``) at 512^3
-with four 640x480 cameras through the best-available voxelizer. Prints
+bench.py's config2 cloud and an oblique one into 128^3 through the tiled
+carve kernel, bitwise against the walk kernel, the plain walk (on the card
+and on the CPU), the tiled plain model and the plain column carve, both
+kernels timed in turns, with the native CPU runtime's rate beside them;
+and the pipeline (carve -> fuse -> EDT -> render, ``reconstruct``) at
+512^3 with four 640x480 cameras through the best-available voxelizer,
+each camera's tiled carve held against the walk kernel and the plain
+carves, and both kernels timed in turns on the first camera. Prints
 human-readable lines, then a JSON line describing each kernel, then
 ``{"ok": true, "device": ...}`` as the last line. Any failure raises, and
 the script exits non-zero; without a CUDA card it exits non-zero before
@@ -38,11 +41,15 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
 from voxelized_geometry_tools_tpu_torch.kernels import probes
+from voxelized_geometry_tools_tpu_torch.kernels.carve_timings import (
+    CARVE_N, CARVE_RES, PIPE_N, PIPE_RES, config2_cloud, oblique_cloud,
+    pipeline_clouds)
 from voxelized_geometry_tools_tpu_torch.kernels.edt_timings import (
     large_sphere_mask, sphere_mask, stacked_passes)
 from voxelized_geometry_tools_tpu_torch.kernels.probes import cuda_ms
@@ -115,12 +122,9 @@ LIBRARIES = ("edt_bestfirst", "edt_envelope", "edt_windowed", "probes",
 # The carve kernel replaces no TPU kernel: the JAX package carves with XLA
 # scatters in while-loops (raycast_pointcloud and its column twin).
 CARVE_REPLACES = "voxelized_geometry_tools_tpu/ops/voxelize.py:357"
-# bench.py:221-236's carve (config2): one 640x480 cloud into 128^3 at 0.02 m.
-CARVE_N, CARVE_RES = 128, 0.02
-# The pipeline (ROADMAP items 8 and 9): 512^3 at 0.01 m, four 640x480
-# depth cameras (benchmarks/sharded_rates.py:66-78's cloud, and the same
-# points looking along +x, +y and -z through the grid centre).
-PIPE_N, PIPE_RES = 512, 0.01
+# The carve scenes (kernels/carve_timings.py): bench.py:221-236's config2
+# (one 640x480 cloud into CARVE_N^3), an oblique cloud, and the pipeline's
+# four 640x480 cameras into PIPE_N^3 (ROADMAP items 8 and 9).
 # int32 adds per second on the H100 SXM: 64 a clock per SM (the CUDA C++
 # guide's throughput table), 132 SMs at the 1,980 MHz boost clock. A
 # device-memory atomic costs at least one add; it is priced at this rate.
@@ -223,13 +227,14 @@ def reset_launches():
     eb.launches = eb.launches_inkernel = 0
     ee.launches_staged = ee.launches = 0
     ew.launches_staged = ew.launches = 0
-    carve.launches = 0
+    carve.launches = carve.launches_tiled = 0
 
 
 def read_launches():
     from voxelized_geometry_tools_tpu_torch.kernels import carve
     eb, ee, ew = kernel_modules()
     return {"carve_walk": carve.launches,
+            "carve_tiled": carve.launches_tiled,
             "edt_bestfirst_staged": eb.launches_staged,
             "edt_bestfirst_cluster": eb.launches_cluster,
             "edt_bestfirst": eb.launches,
@@ -1492,98 +1497,43 @@ def phase_render_schedule(spec, sdf, table, camera, fixed):
 # -- Carving and the pipeline -------------------------------------------------
 
 
-def config2_points():
-    """bench.py:221-236's camera-frame points: a 640x480 depth image of a
-    rippled surface 2.0-2.4 m away."""
-    cu, cv = np.meshgrid(np.linspace(-0.5, 0.5, 640),
-                         np.linspace(-0.4, 0.4, 480), indexing="ij")
-    cdep = 2.2 + 0.2 * np.sin(6 * cu) * np.cos(6 * cv)
-    return np.stack([cu * cdep, cv * cdep, cdep],
-                    -1).reshape(-1, 3).astype(np.float32)
-
-
-def config2_cloud(device):
-    """bench.py:221-236's carve cloud: the camera at (1.28, 1.28, -1.0)
-    looking +z into 128^3 at 0.02 m."""
-    from voxelized_geometry_tools_tpu_torch.ops import voxelize
-    pose = np.eye(4, dtype=np.float32)
-    pose[:3, 3] = (1.28, 1.28, -1.0)
-    return voxelize.PointCloud.create(config2_points(), pose, device=device)
-
-
-def look_along(direction, position):
-    """A camera rotation (+z forward) looking along ``direction``, at
-    ``position`` (benchmarks/carve_oblique.py:48-67's frame)."""
-    fwd = np.asarray(direction, np.float64)
-    fwd = fwd / np.linalg.norm(fwd)
-    up = np.array([0.0, 0.0, 1.0])
-    if abs(fwd @ up) > 0.9:
-        up = np.array([0.0, 1.0, 0.0])
-    right = np.cross(up, fwd)
-    right /= np.linalg.norm(right)
-    pose = np.eye(4, dtype=np.float32)
-    pose[:3, 0], pose[:3, 1], pose[:3, 2] = right, np.cross(fwd, right), fwd
-    pose[:3, 3] = position
-    return pose
-
-
-def oblique_cloud(device):
-    """benchmarks/carve_oblique.py:48-67's make_cloud((1, 1, 1)): the
-    config2 camera turned to 45 degrees to every grid axis, 1.8 m from the
-    128^3 grid's centre."""
-    from voxelized_geometry_tools_tpu_torch.ops import voxelize
-    fwd = np.ones(3) / np.sqrt(3.0)
-    pose = look_along(fwd, np.full(3, 1.28) - 1.8 * fwd)
-    return voxelize.PointCloud.create(config2_points(), pose, device=device)
-
-
-def pipeline_clouds(device):
-    """The pipeline's four 640x480 cameras: benchmarks/sharded_rates.py:
-    66-78's cloud (rng 0, looking +z from 0.2 of the grid below it), and
-    the same points with the pose turned to look along +x, +y and -z
-    through the grid centre from the same distance outside it."""
-    from voxelized_geometry_tools_tpu_torch.ops import voxelize
-    n, res = PIPE_N, PIPE_RES
-    rng = np.random.default_rng(0)
-    w, h = IMG_W, IMG_H
-    uv = np.stack(np.meshgrid(
-        (np.arange(w) - w / 2) / 600.0, (np.arange(h) - h / 2) / 600.0,
-        indexing="xy"), -1)
-    depth = (0.55 * n * res) * (1.0 + 0.1 * rng.standard_normal((h, w)))
-    pts = np.concatenate([uv * depth[..., None], depth[..., None]],
-                         -1).reshape(-1, 3).astype(np.float32)
-    center = np.full(3, n * res / 2)
-    away = n * res / 2 + 0.2 * n * res
-    poses = []
-    for axis, sign in ((2, 1.0), (0, 1.0), (1, 1.0), (2, -1.0)):
-        fwd = np.zeros(3)
-        fwd[axis] = sign
-        if (axis, sign) == (2, 1.0):
-            pose = np.eye(4, dtype=np.float32)
-            pose[:3, 3] = center - away * fwd
-        else:
-            pose = look_along(fwd, center - away * fwd)
-        poses.append(pose)
-    return [voxelize.PointCloud.create(pts, p, max_range=2.0 * n * res,
-                                       device=device) for p in poses]
-
-
 def grids_equal(a, b):
     return (torch.equal(a.seen_free.cpu(), b.seen_free.cpu())
             and torch.equal(a.seen_filled.cpu(), b.seen_filled.cpu()))
 
 
-def carve_fn(spec, setup, n_steps, run):
-    """One carve of ``setup`` into fresh grids by ``run`` (the kernel or
-    the plain walk): the grids zeroed, then carved."""
-    free = torch.empty(spec.num_total, dtype=torch.int32, device="cuda")
+def carve_fn(spec, setup, n_steps, run, zero=True):
+    """One carve of ``setup`` into fresh grids by ``run``: the walk kernel
+    or the plain walk add into grids zeroed first (``zero``); the tiled
+    kernel and its plain model write every voxel, so nothing is zeroed.
+    ``fn.grids`` holds the result, shaped as the grid."""
+    free = torch.empty(spec.counts, dtype=torch.int32, device="cuda")
     filled = torch.empty_like(free)
 
     def fn():
-        free.zero_()
-        filled.zero_()
-        run(spec.counts, setup, n_steps, free, filled)
+        if zero:
+            free.zero_()
+            filled.zero_()
+        run(spec.counts, setup, n_steps, free.view(-1), filled.view(-1))
+    fn.grids = SimpleNamespace(seen_free=free, seen_filled=filled)
     return fn
+
+
+def carve_kernels(carve, spec, setup, n_steps):
+    """The tiled kernel and the walk kernel, each a carve into fresh
+    grids."""
+    return {"carve_tiled": carve_fn(spec, setup, n_steps, carve.carve_tiled,
+                                    zero=False),
+            "carve_walk": carve_fn(spec, setup, n_steps, carve.carve_kernel)}
+
+
+def in_turns(fns, reps):
+    """Each function's ms a call (cuda_ms over ``reps``), in turns: A B ...
+    then ... B A; a list of two times each."""
+    times = {name: [] for name in fns}
+    for name in list(fns) + list(reversed(fns)):
+        times[name].append(cuda_ms(fns[name], reps))
+    return times
 
 
 def carve_bound(spec, setup, visits):
@@ -1597,11 +1547,13 @@ def carve_bound(spec, setup, visits):
 
 
 def phase_carve():
-    """bench.py's config2 carve and the oblique camera at 128^3: the kernel
-    bitwise against the plain walk (on the card and, from the same points,
-    on the CPU), the plain column carve (run axis 2, pick_run_axis's choice,
-    the diff accumulator) and the card's ray setup against the CPU's; the
-    kernel's, the native CPU runtime's and the plain carves' rates."""
+    """bench.py's config2 carve and the oblique camera at 128^3: the tiled
+    kernel (``raycast_pointcloud``'s carve on the card) bitwise against the
+    walk kernel, the plain walk (on the card and, from the same points, on
+    the CPU), the tiled plain model, the plain column carve (run axis 2,
+    pick_run_axis's choice, the diff accumulator), and the card's ray setup
+    against the CPU's; both kernels' times in turns, and the native CPU
+    runtime's and the plain carves' rates."""
     from voxelized_geometry_tools_tpu_torch import GridSpec, native
     from voxelized_geometry_tools_tpu_torch.kernels import carve
     from voxelized_geometry_tools_tpu_torch.ops import voxelize
@@ -1613,12 +1565,13 @@ def phase_carve():
                        ("oblique (1, 1, 1)", oblique_cloud)):
         cloud = make("cuda")
         n_rays = cloud.points.shape[0]
-        before = carve.launches
+        before = (carve.launches, carve.launches_tiled)
         got = voxelize.raycast_pointcloud(spec, eye, cloud)
         torch.cuda.synchronize()
-        if carve.launches != before + 1:
-            raise AssertionError(f"{name}: {carve.launches - before} carve "
-                                 "launches, expected 1")
+        if (carve.launches, carve.launches_tiled) != (before[0],
+                                                      before[1] + 1):
+            raise AssertionError(f"{name}: raycast_pointcloud launched the "
+                                 "walk kernel or not the tiled one once")
         axis = voxelize.pick_run_axis(cloud, eye)
         t0 = time.monotonic()
         refs = {"plain walk": voxelize.raycast_pointcloud(
@@ -1638,11 +1591,18 @@ def phase_carve():
         refs["CPU plain walk"] = voxelize.raycast_pointcloud(
             spec, eye.cpu(), host)
         cpu_walk_s = time.monotonic() - t0
+        dev_setup = voxelize.ray_setup(spec, eye, cloud)
+        fns = carve_kernels(carve, spec, dev_setup, n_steps)
+        fns["carve_walk"]()
+        refs["walk kernel"] = fns["carve_walk"].grids
+        model = carve_fn(spec, dev_setup, n_steps, carve.carve_tiled_plain,
+                         zero=False)
+        model()
+        refs["tiled plain model"] = model.grids
         for what, ref in refs.items():
             if not grids_equal(got, ref):
-                raise AssertionError(f"{name}: the carve kernel differs from "
-                                     f"the {what}")
-        dev_setup = voxelize.ray_setup(spec, eye, cloud)
+                raise AssertionError(f"{name}: the tiled carve kernel "
+                                     f"differs from the {what}")
         cpu_setup = voxelize.ray_setup(spec, eye.cpu(), host)
         hit = cpu_setup.hit
         for field in dev_setup._fields:
@@ -1654,8 +1614,7 @@ def phase_carve():
                 raise AssertionError(f"{name}: the card's ray setup differs "
                                      f"from the CPU's in {field}")
         visits = carve.count_visits(spec.counts, dev_setup, n_steps)
-        fn = carve_fn(spec, dev_setup, n_steps, carve.carve_kernel)
-        kernel_ms = cuda_ms(fn, 20)
+        times = in_turns(fns, 20)
         wrapper_ms = cuda_ms(
             lambda: voxelize.raycast_pointcloud(spec, eye, cloud), 10)
         t0 = time.monotonic()
@@ -1676,12 +1635,16 @@ def phase_carve():
                                         CARVE_RES)
             native_ms = (time.monotonic() - t0) / reps * 1e3
         bound_ms, bound_by = carve_bound(spec, dev_setup, visits)
-        log(f"carve {name}: {n_rays} rays into {CARVE_N}^3, kernel bitwise "
-            f"equal to {', '.join(refs)}, setup equal to the CPU's; "
-            f"{visits} visits ({visits / n_rays:.1f} a ray); kernel "
-            f"{kernel_ms:.4f} ms = {n_rays / (kernel_ms / 1e3):.4e} rays/s "
-            f"({visits / (kernel_ms / 1e3):.4e} visits/s, bound "
-            f"{bound_ms:.4f} ms by {bound_by}); raycast_pointcloud "
+        tiled_ms = float(np.mean(times["carve_tiled"]))
+        log(f"carve {name}: {n_rays} rays into {CARVE_N}^3, tiled kernel "
+            f"bitwise equal to {', '.join(refs)}, setup equal to the CPU's; "
+            f"{visits} visits ({visits / n_rays:.1f} a ray); in turns, "
+            f"tiled kernel {times['carve_tiled']} ms, walk kernel (zeroing "
+            f"included) {times['carve_walk']} ms; tiled "
+            f"{n_rays / (tiled_ms / 1e3):.4e} rays/s "
+            f"({visits / (tiled_ms / 1e3):.4e} visits/s, bound "
+            f"{bound_ms:.4f} ms by {bound_by}, reached "
+            f"{bound_ms / tiled_ms:.3f}); raycast_pointcloud "
             f"(setup + kernel) {wrapper_ms:.4f} ms = "
             f"{n_rays / (wrapper_ms / 1e3):.4e} rays/s; plain walk one call "
             f"{walk_ms:.1f} ms; plain column carve "
@@ -1711,11 +1674,13 @@ def filled_invariant(spec, cloud):
 def phase_pipeline(camera):
     """ROADMAP items 8 and 9 at full size: four 640x480 clouds carved into
     512^3 (0.5 static occupancy) by the best-available voxelizer (the
-    carve kernel), fused, EDT, and a 64-step render from bench.py's
-    camera, through ``reconstruct``; each camera's kernel grids bitwise
-    against the plain column carve, the fused occupancy against
-    combine_and_filter of those grids, the filled-count invariant, and the
-    phase times and peak device memory."""
+    tiled carve kernel, each cloud into its slice of one stacked pair),
+    fused, EDT, and a 64-step render from bench.py's camera, through
+    ``reconstruct``; each camera's tiled-kernel grids bitwise against the
+    walk kernel, the plain walk on the card and on the CPU and the plain
+    column carve, the fused occupancy against combine_and_filter of the
+    plain grids, the filled-count invariant, the phase times and peak
+    device memory; both kernels' times on camera 0, in turns."""
     from voxelized_geometry_tools_tpu_torch import GridSpec, OccupancyMap
     from voxelized_geometry_tools_tpu_torch.kernels import carve
     from voxelized_geometry_tools_tpu_torch.models import fusion_pipeline
@@ -1743,10 +1708,10 @@ def phase_pipeline(camera):
     step_s = time.monotonic() - t0
     counts = read_launches()
     peak = torch.cuda.max_memory_allocated()
-    if counts["carve_walk"] != len(clouds):
-        raise AssertionError(f"the pipeline launched the carve kernel "
-                             f"{counts['carve_walk']} times, expected "
-                             f"{len(clouds)}")
+    if (counts["carve_tiled"], counts["carve_walk"]) != (len(clouds), 0):
+        raise AssertionError(f"the pipeline's carve launches: {counts}, "
+                             f"expected the tiled kernel once for each of "
+                             f"{len(clouds)} cameras")
     if counts["edt_bestfirst_staged"] != 2:
         raise AssertionError(f"the pipeline's EDT launches: {counts}")
     occ = out.occupancy_map.occupancy
@@ -1784,36 +1749,74 @@ def phase_pipeline(camera):
         f"{[int((occ == v).sum()) for v in (0.0, 0.5, 1.0)]}; render hit "
         f"fraction {hit_frac:.6f}")
 
-    # Each camera's kernel grids against the plain column carve.
+    # Each camera's tiled-kernel grids, fresh and the voxelizer's slice of
+    # its stacked pair (written over garbage), against the walk kernel, the
+    # plain walk (card and CPU) and the plain column carve.
     eye = env.origin_transform
     n_steps = carve.segment_steps(3 * PIPE_N + 2)
+    # Garbage freed where the caching allocator will likely place the pair.
+    garbage = torch.full((2, len(clouds)) + spec.counts, -7,
+                         dtype=torch.int32, device="cuda")
+    del garbage
+    stacked = vox._carve(spec, eye, clouds)
     plain_free, plain_filled = [], []
     first = None
     for i, cloud in enumerate(clouds):
         got = voxelize.raycast_pointcloud(spec, eye, cloud, backend="cuda")
+        setup = voxelize.ray_setup(spec, eye, cloud)
+        walk = carve_kernels(carve, spec, setup, n_steps)["carve_walk"]
+        walk()
+        plain = carve_fn(spec, setup, n_steps, carve.carve_plain)
+        plain()
+        host = voxelize.PointCloud.create(cloud.points.cpu(),
+                                          cloud.origin_transform.cpu(),
+                                          float(cloud.max_range))
+        t0 = time.monotonic()
+        cpu_walk = voxelize.raycast_pointcloud(spec, eye.cpu(), host)
+        cpu_walk_s = time.monotonic() - t0
         axis = voxelize.pick_run_axis(cloud, eye)
         t0 = time.monotonic()
         ref = voxelize.raycast_pointcloud_columns(
             spec, eye, cloud, run_axis=axis, ray_chunk=cloud.points.shape[0])
         torch.cuda.synchronize()
         cols_s = time.monotonic() - t0
-        if not grids_equal(got, ref):
-            raise AssertionError(f"camera {i}: the carve kernel differs from "
-                                 f"the plain column carve")
+        sliced = SimpleNamespace(seen_free=stacked[0][i],
+                                 seen_filled=stacked[1][i])
+        for what, other in (("walk kernel", walk.grids),
+                            ("plain walk", plain.grids),
+                            ("CPU plain walk", cpu_walk),
+                            ("plain column carve", ref)):
+            for which, grids in (("tiled carve kernel", got),
+                                 ("voxelizer's stacked slice", sliced)):
+                if not grids_equal(grids, other):
+                    raise AssertionError(f"camera {i}: the {which} differs "
+                                         f"from the {what}")
         filled = int(got.seen_filled.sum())
         want = filled_invariant(spec, cloud)
         if filled != want:
             raise AssertionError(f"camera {i}: {filled} filled marks, "
                                  f"expected {want}")
-        log(f"pipeline camera {i}: kernel bitwise equal to the plain column "
-            f"carve (run_axis={axis!r}, one call {cols_s * 1e3:.1f} ms); "
-            f"filled marks {filled} = finite unclipped in-grid rays; free "
-            f"marks {int(got.seen_free.sum())}")
+        scratch = carve._launch_tiled(spec.counts, setup, n_steps,
+                                      got.seen_free.view(-1),
+                                      got.seen_filled.view(-1),
+                                      carve.TILE)["scratch"]
+        n_tiles = (scratch.numel() - 3) // 4
+        entries = int(scratch[2 * n_tiles])
+        busy = int((scratch[:n_tiles] > 0).sum())
+        log(f"pipeline camera {i}: tiled kernel and the voxelizer's stacked "
+            f"slice bitwise equal to the walk kernel, the plain walk (card; CPU one call {cpu_walk_s:.1f} s) "
+            f"and the plain column carve (run_axis={axis!r}, one call "
+            f"{cols_s * 1e3:.1f} ms); filled marks {filled} = finite "
+            f"unclipped in-grid rays; free marks {int(got.seen_free.sum())};"
+            f" tile lists {entries} entries "
+            f"({entries / cloud.points.shape[0]:.2f} a ray) in {busy} of "
+            f"{n_tiles} tiles of {carve.tile_shape(spec.counts)}")
         plain_free.append(ref.seen_free)
         plain_filled.append(ref.seen_filled)
         if first is None:
-            first = voxelize.ray_setup(spec, eye, cloud)
-        del got, ref
+            first = setup
+        del got, sliced, ref, walk, plain, cpu_walk, setup
+    del stacked
     fused = voxelize.combine_and_filter(
         voxelize.FilterOptions(), torch.stack(plain_free),
         torch.stack(plain_filled), env.occupancy)
@@ -1822,21 +1825,31 @@ def phase_pipeline(camera):
                              "combine_and_filter of the plain grids")
     del plain_free, plain_filled, fused
 
-    # The kernel at the main path's shape (camera 0): one carve into fresh
-    # 512^3 grids, against the plain walk on the same setup, and its bound.
+    # Both kernels at the main path's shape (camera 0), each a carve into
+    # fresh 512^3 grids, in turns; each against its plain version on the
+    # same setup; the bound.
     visits = carve.count_visits(spec.counts, first, n_steps)
-    fn = carve_fn(spec, first, n_steps, carve.carve_kernel)
-    ms = cuda_ms(fn, 10)
-    fn_plain = carve_fn(spec, first, n_steps, carve.carve_plain)
-    plain_ms = cuda_ms(fn_plain, 1)
+    times = in_turns(carve_kernels(carve, spec, first, n_steps), 10)
+    plain_ms = {
+        "carve_walk": cuda_ms(carve_fn(spec, first, n_steps,
+                                       carve.carve_plain), 1),
+        "carve_tiled": cuda_ms(carve_fn(spec, first, n_steps,
+                                        carve.carve_tiled_plain,
+                                        zero=False), 1)}
     bound_ms, bound_by = carve_bound(spec, first, visits)
     n_rays = first.hit.shape[0]
-    log(f"carve kernel, pipeline camera 0: {ms:.4f} ms = "
-        f"{n_rays / (ms / 1e3):.4e} rays/s, {visits} visits "
-        f"({visits / (ms / 1e3):.4e} visits/s); plain walk {plain_ms:.1f} ms;"
-        f" bound {bound_ms:.4f} ms by {bound_by}")
-    return {"launches": counts["carve_walk"], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+    rows = {}
+    for kname, ms_turns in times.items():
+        ms = float(np.mean(ms_turns))
+        log(f"{kname}, pipeline camera 0: {ms_turns} ms in turns = "
+            f"{n_rays / (ms / 1e3):.4e} rays/s, {visits} visits "
+            f"({visits / (ms / 1e3):.4e} visits/s); plain version "
+            f"{plain_ms[kname]:.1f} ms; bound {bound_ms:.4f} ms by "
+            f"{bound_by}, reached {bound_ms / ms:.3f}")
+        rows[kname] = {"launches": counts[kname], "ms": ms,
+                       "plain_ms": plain_ms[kname], "bound_ms": bound_ms,
+                       "bound_by": bound_by}
+    return rows
 
 
 def main():
@@ -1863,7 +1876,7 @@ def main():
     (probe_launches, probe_errs, probe_ms, probe_plain_ms, probe_library_ms,
      probe_bounds) = phase_probes()
     phase_carve()
-    carve_row = phase_pipeline(camera)
+    carve_rows = phase_pipeline(camera)
     plain_512 = t_edt["plain_y"] + t_edt["plain_z"]
     kernels = []
     for kname, (source, replaces) in KERNELS.items():
@@ -1911,17 +1924,19 @@ def main():
             "bound_by": probe_bounds[kname][1],
             "library_ms": probe_library_ms[kname],
         })
-    # The carve kernel: the pipeline's launches; its time, the plain walk's
-    # and its bound on the pipeline's first camera at 512^3. Every
-    # comparison of it is bitwise (a difference raises). No single PyTorch
-    # call computes the walk.
-    kernels.append({
-        "name": "carve_walk", "route": "cuda", "source": CSRC + "carve.cu",
-        "replaces": CARVE_REPLACES, "launches": carve_row["launches"],
-        "max_abs_err": 0.0, "ms": carve_row["ms"],
-        "plain_ms": carve_row["plain_ms"], "bound_ms": carve_row["bound_ms"],
-        "bound_by": carve_row["bound_by"], "library_ms": None,
-    })
+    # The carve kernels: the pipeline's launches (the walk kernel is kept
+    # to be timed and checked against, so none); each one's time, its plain
+    # version's and the bound on the pipeline's first camera at 512^3. Every
+    # comparison of them is bitwise (a difference raises). No single
+    # PyTorch call computes the walk.
+    for kname, row in carve_rows.items():
+        kernels.append({
+            "name": kname, "route": "cuda", "source": CSRC + "carve.cu",
+            "replaces": CARVE_REPLACES, "launches": row["launches"],
+            "max_abs_err": 0.0, "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None,
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

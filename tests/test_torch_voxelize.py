@@ -423,7 +423,8 @@ def test_count_visits_counts_the_walk():
 
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain_walk():
-    """On the card: the carve kernel against the plain walk and the plain
+    """On the card: the carve kernel (the tiled one, which
+    raycast_pointcloud launches) against the plain walk and the plain
     column carve, bitwise, on both scenes and every step budget, and the
     card's setup against the CPU's."""
     if not torch.cuda.is_available():
@@ -436,11 +437,11 @@ def test_cuda_kernel_matches_plain_walk():
             np.asarray(cloud.points), np.asarray(cloud.origin_transform),
             np.asarray(cloud.max_range), device="cuda")
         for max_steps in (None, 5, 64, 100):
-            before = carve.launches
+            before = carve.launches_tiled
             got = tv.raycast_pointcloud(tspec, _tmat(origin).cuda(), dev,
                                         max_steps=max_steps)
             torch.cuda.synchronize()
-            assert carve.launches == before + 1
+            assert carve.launches_tiled == before + 1
             plain = tv.raycast_pointcloud(tspec, _tmat(origin).cuda(), dev,
                                           max_steps=max_steps,
                                           backend="plain")

@@ -863,7 +863,9 @@ def queued_ms(fn, reps: int = TIMED_CALLS) -> float:
     fn()
     host_s = time.perf_counter() - t
     torch.cuda.synchronize()
-    spin_s = min(4 * reps * host_s + 1e-3, MAX_SPIN_S)
+    # 20 ms to spare: the host's cores are shared, and one call's host time
+    # does not bound a stall among the next ``reps``.
+    spin_s = min(4 * reps * host_s + 0.02, MAX_SPIN_S)
     queued = torch.cuda.Event()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)

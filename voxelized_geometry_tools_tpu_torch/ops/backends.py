@@ -3,7 +3,7 @@
 Port of ``voxelized_geometry_tools_tpu/ops/backends.py`` (the reference's
 backend discovery and selection, pointcloud_voxelization.cpp:18-147):
 enumerate the available backends, build a voxelizer for one, or take the
-best available. ``ACCELERATOR`` is the CUDA card (the carve kernel,
+best available. ``ACCELERATOR`` is the CUDA card (the tiled carve kernel,
 ``kernels/csrc/carve.cu``), ``NATIVE_CPU`` the multithreaded C++ runtime
 (:mod:`..native`). Every backend passes the same oracle tests.
 
@@ -24,10 +24,10 @@ import torch
 from ..core import transforms
 from ..core.device import default_device
 from ..core.maps import OccupancyMap
-from .voxelize import (FilterOptions, PointCloud, VoxelizerRuntime,
-                       combine_and_filter, pick_run_axis,
+from .voxelize import (FilterOptions, PointCloud, TrackingGrid,
+                       VoxelizerRuntime, combine_and_filter, pick_run_axis,
                        raycast_pointcloud, raycast_pointcloud_columns,
-                       voxelize_pointclouds)
+                       stacked_grids, voxelize_pointclouds)
 
 LoggingFunction = Optional[Callable[[str], None]]
 
@@ -78,7 +78,8 @@ def retrieve_option_or_default(options: Dict[str, int], key: str,
 
 class AcceleratorPointCloudVoxelizer:
     """The device voxelizer. On the CUDA card (``device=None``) it carves
-    every cloud with the carve kernel, one launch per cloud; ``CARVE_COLUMNS``
+    every cloud with the tiled carve kernel, one launch per cloud, into its
+    slice of one stacked pair of grids; ``CARVE_COLUMNS``
     is accepted, validated and logged, since the walk and the column carve
     give the same bits. With ``device="cpu"`` it carves with the PyTorch
     twins as the JAX package chooses them: the column carve along
@@ -130,10 +131,17 @@ class AcceleratorPointCloudVoxelizer:
             for cloud in pointclouds)
 
     def _carve(self, spec, origin_transform, pointclouds):
+        """The stacked ``[C, nx, ny, nz]`` counters of the clouds."""
         if self.device.type == "cuda":
-            return [raycast_pointcloud(spec, origin_transform, cloud,
-                                       self._max_steps, backend="cuda")
-                    for cloud in pointclouds]
+            # The tiled kernel writes each cloud's slice in full.
+            seen_free, seen_filled = stacked_grids(spec, len(pointclouds),
+                                                   self.device)
+            for i, cloud in enumerate(pointclouds):
+                raycast_pointcloud(
+                    spec, origin_transform, cloud, self._max_steps,
+                    backend="cuda",
+                    _out=TrackingGrid(seen_free[i], seen_filled[i]))
+            return seen_free, seen_filled
         grids = []
         for cloud, axis in zip(pointclouds, self._pick_run_axes(
                 pointclouds, origin_transform)):
@@ -145,7 +153,8 @@ class AcceleratorPointCloudVoxelizer:
                 grids.append(raycast_pointcloud_columns(
                     spec, origin_transform, cloud, self._max_steps,
                     ray_chunk=self._ray_chunk, run_axis=axis))
-        return grids
+        return (torch.stack([g.seen_free for g in grids]),
+                torch.stack([g.seen_filled for g in grids]))
 
     def voxelize_pointclouds(self, static_environment: OccupancyMap,
                              filter_options: FilterOptions,
@@ -164,11 +173,8 @@ class AcceleratorPointCloudVoxelizer:
         spec = static_environment.spec
         spec.enforce_uniform_voxel_size()
         t0 = time.monotonic()
-        grids = self._carve(spec, static_environment.origin_transform,
-                            pointclouds)
-        seen_free = torch.stack([g.seen_free for g in grids])
-        seen_filled = torch.stack([g.seen_filled for g in grids])
-        del grids
+        seen_free, seen_filled = self._carve(
+            spec, static_environment.origin_transform, pointclouds)
         _sync(self.device)
         t1 = time.monotonic()
         occupancy = combine_and_filter(filter_options, seen_free, seen_filled,

@@ -141,6 +141,14 @@ def _zero_grid(spec: GridSpec, device) -> TrackingGrid:
     return TrackingGrid(zero, zero.clone())
 
 
+def stacked_grids(spec: GridSpec, n_clouds: int, device) -> TrackingGrid:
+    """Uninitialized ``[C, nx, ny, nz]`` int32 counters for ``n_clouds``
+    cameras, which the carve writes a camera's slice at a time."""
+    return TrackingGrid(*(torch.empty((n_clouds,) + spec.counts,
+                                      dtype=torch.int32, device=device)
+                          for _ in range(2)))
+
+
 def _ray_visits(spec: GridSpec, p_start: Tensor, start_index: Tensor,
                 p_final: Tensor, final_index: Tensor, ray: Tensor,
                 hit: Tensor, clipped: Tensor) -> RaySetup:
@@ -293,16 +301,19 @@ def raycast_pointcloud(spec: GridSpec, grid_origin_transform,
                        cloud: PointCloud,
                        max_steps: Optional[int] = None,
                        ray_chunk: int = 16384,
-                       backend: str = "auto") -> TrackingGrid:
+                       backend: str = "auto",
+                       _out: Optional[TrackingGrid] = None) -> TrackingGrid:
     """Carve one cloud into a fresh tracking grid by the voxel walk
     (``DoRaycastPointCloud``, cpu cpp:167-206), on the cloud's device.
 
     ``max_steps`` (default ``nx + ny + nz + 2``) is the walk's step budget,
     rounded up to whole 64-step segments as in the JAX package.
-    ``backend``: ``"cuda"`` launches the carve kernel once over every ray
-    (a CPU cloud raises), ``"plain"`` walks in PyTorch in ``ray_chunk``
+    ``backend``: ``"cuda"`` launches the tiled carve kernel once over every
+    ray (a CPU cloud raises), ``"plain"`` walks in PyTorch in ``ray_chunk``
     blocks, ``"auto"`` is the kernel for a CUDA cloud and the plain walk for
-    a CPU one. All give the same bits."""
+    a CPU one. All give the same bits. ``_out`` (internal): contiguous
+    int32 grids to carve into, written in full and returned (the voxelizers
+    pass each cloud's slice of one stacked pair)."""
     spec.enforce_uniform_voxel_size()
     if backend not in _WALK_BACKENDS:
         raise ValueError(f"Unknown carve backend {backend!r}")
@@ -317,22 +328,34 @@ def raycast_pointcloud(spec: GridSpec, grid_origin_transform,
                          f"got one on {dev}")
     X_GC = _grid_frame_transform(grid_origin_transform, cloud)
     n_rays = cloud.points.shape[0]
-    if n_rays == 0:
-        return _zero_grid(spec, dev)
-    free = torch.zeros(spec.num_total, dtype=torch.int32, device=dev)
-    filled = torch.zeros_like(free)
-    # The kernel takes every ray in one launch; the plain walk goes in
-    # chunks so that its per-step temporaries stay bounded.
-    chunk = n_rays if backend == "cuda" else _balanced_chunk(n_rays,
-                                                             ray_chunk)
-    run = (carve_kernels.carve_kernel if backend == "cuda"
-           else carve_kernels.carve_plain)
+    if _out is None:
+        out = TrackingGrid(*(torch.empty(spec.counts, dtype=torch.int32,
+                                         device=dev) for _ in range(2)))
+    else:
+        out = _out
+        for g in out:
+            if (g.shape != spec.counts or g.dtype != torch.int32
+                    or g.device != dev or not g.is_contiguous()):
+                raise ValueError(f"_out grids must be contiguous int32 "
+                                 f"{spec.counts} tensors on {dev}")
+    free, filled = out.seen_free.view(-1), out.seen_filled.view(-1)
+    if backend == "cuda":
+        # The kernel takes every ray in one launch and writes both grids
+        # in full.
+        setup = _ray_visits(spec, *_prepare_rays(
+            spec, X_GC, cloud.points, cloud.max_range))
+        carve_kernels.carve_tiled(spec.counts, setup, n_steps, free, filled)
+        return out
+    free.zero_()
+    filled.zero_()
+    # The plain walk goes in chunks so that its per-step temporaries stay
+    # bounded.
+    chunk = _balanced_chunk(n_rays, ray_chunk)
     for lo in range(0, n_rays, chunk):
         setup = _ray_visits(spec, *_prepare_rays(
             spec, X_GC, cloud.points[lo:lo + chunk], cloud.max_range))
-        run(spec.counts, setup, n_steps, free, filled)
-    return TrackingGrid(seen_free=free.reshape(spec.counts),
-                        seen_filled=filled.reshape(spec.counts))
+        carve_kernels.carve_plain(spec.counts, setup, n_steps, free, filled)
+    return out
 
 
 def ray_setup(spec: GridSpec, grid_origin_transform,
@@ -941,9 +964,9 @@ def voxelize_pointclouds(
         runtime_log_fn: Optional[Callable[[VoxelizerRuntime], None]] = None,
         max_steps: Optional[int] = None) -> OccupancyMap:
     """End-to-end ``VoxelizePointClouds`` (pointcloud_voxelization_interface.
-    hpp:246-292): carve each cloud into its own tracking grid
-    (:func:`raycast_pointcloud`: the carve kernel for clouds on a CUDA
-    device), then fuse. The device is synchronized after each phase, so
+    hpp:246-292): carve each cloud into its slice of one stacked pair of
+    tracking grids (:func:`raycast_pointcloud`: the tiled carve kernel for
+    clouds on a CUDA device), then fuse. The device is synchronized after each phase, so
     the ``VoxelizerRuntime`` given to ``runtime_log_fn`` is the phases'
     wall time."""
     filter_options.validate()
@@ -951,18 +974,14 @@ def voxelize_pointclouds(
     dev = static_environment.occupancy.device
 
     t0 = time.monotonic()
-    if pointclouds:
-        grids = [raycast_pointcloud(spec,
-                                    static_environment.origin_transform,
-                                    cloud, max_steps)
-                 for cloud in pointclouds]
-        seen_free = torch.stack([g.seen_free for g in grids])
-        seen_filled = torch.stack([g.seen_filled for g in grids])
-        del grids
-    else:
-        seen_free = torch.zeros((0,) + spec.counts, dtype=torch.int32,
-                                device=dev)
-        seen_filled = torch.zeros_like(seen_free)
+    seen_free, seen_filled = stacked_grids(spec, len(pointclouds), dev)
+    for i, cloud in enumerate(pointclouds):
+        if cloud.points.device != dev:
+            raise ValueError(f"a cloud lies on {cloud.points.device}, the "
+                             f"static environment on {dev}")
+        raycast_pointcloud(spec, static_environment.origin_transform, cloud,
+                           max_steps,
+                           _out=TrackingGrid(seen_free[i], seen_filled[i]))
     _sync(dev)
     t1 = time.monotonic()
     occupancy = combine_and_filter(filter_options, seen_free, seen_filled,
