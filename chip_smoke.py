@@ -27,7 +27,15 @@ kernels timed in turns, with the native CPU runtime's rate beside them;
 and the pipeline (carve -> fuse -> EDT -> render, ``reconstruct``) at
 512^3 with four 640x480 cameras through the best-available voxelizer,
 each camera's tiled carve held against the walk kernel and the plain
-carves, and both kernels timed in turns on the first camera. Prints
+carves, and both kernels timed in turns on the first camera. Then the
+carve under rotated grid origins (fault F1's 64^3 input and the first
+pipeline camera into 512^3: X_GC on the card bitwise equal to the CPU's,
+the tiled kernel to the plain walk), the online mapper at 512^3 (integrate
+and integrate_frames bitwise equal to each other and to the plain walk
+followed by the fusion filter, its SDF through the staged EDT kernel, a
+render and a localize) and the fits on bench.py's sphere (the pose fit
+with and without remat, the voxel fit with a brick-table and a pair-table
+request, pair-table queries bitwise against brick-table queries). Prints
 human-readable lines, then a JSON line describing each kernel, then
 ``{"ok": true, "device": ...}`` as the last line. Any failure raises, and
 the script exits non-zero; without a CUDA card it exits non-zero before
@@ -35,6 +43,7 @@ doing anything.
 """
 
 import contextlib
+import dataclasses
 import functools
 import json
 import subprocess
@@ -48,8 +57,8 @@ import torch
 
 from voxelized_geometry_tools_tpu_torch.kernels import probes
 from voxelized_geometry_tools_tpu_torch.kernels.carve_timings import (
-    CARVE_N, CARVE_RES, PIPE_N, PIPE_RES, config2_cloud, oblique_cloud,
-    pipeline_clouds)
+    CARVE_N, CARVE_RES, PIPE_N, PIPE_RES, config2_cloud, look_along,
+    oblique_cloud, pipeline_clouds)
 from voxelized_geometry_tools_tpu_torch.kernels.edt_timings import (
     large_sphere_mask, sphere_mask, stacked_passes)
 from voxelized_geometry_tools_tpu_torch.kernels.probes import cuda_ms
@@ -1852,6 +1861,372 @@ def phase_pipeline(camera):
     return rows
 
 
+# Fault F1's input (ROADMAP.md section 3; tests/test_torch_transforms_exact.py
+# draws the same scene with fewer points), and the 512^3 grid turned about
+# its centre by these angles (radians about x, then y, then z).
+F1_N, F1_RES, F1_POINTS, F1_SEED = 64, 0.02, 200_000, 200
+ROTATED_ANGLES = (0.3, -0.2, 0.25)
+# The pipeline cameras' intrinsics (carve_timings.pipeline_clouds: pixel
+# (u, v) is the ray (u - w/2, v - h/2, 600)).
+CLOUD_FOCAL = 600.0
+LOCALIZE_ITERS = 5
+FIT_STEPS = 48
+POSE_FIT_ITERS = 5
+# The pose fits' Adam step (rad and m a step): 0.2 voxel at 0.01 m, where
+# the package's default of 0.01 (made for 0.1 m voxels) overshoots.
+POSE_LR = 2e-3
+POSE_FIT_TANGENT = (0.01, -0.01, 0.005, 0.02, -0.01, 0.01)
+# remat=True against remat=False on the card: each fit step's loss, rtol.
+REMAT_RTOL = 1e-4
+VOXEL_FIT_ITERS = 3
+# The voxel fit's noise and Adam step, in voxels.
+VOXEL_NOISE, VOXEL_LR = 0.3, 0.05
+PAIR_QUERY_POINTS = 1_000_000
+
+
+def quat_rotation(q):
+    """Rotation matrix of the unit quaternion ``q / |q|`` (w, x, y, z)."""
+    w, x, y, z = np.asarray(q, np.float64) / np.linalg.norm(q)
+    return np.array([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]])
+
+
+def f1_scene(device):
+    """F1's 64^3 grid at 0.02 m under an origin rotated about all three
+    axes and one rotated camera inside it with 200,000 rays, drawn from
+    ``default_rng(200)``: (spec, X_WG as numpy, cloud)."""
+    from voxelized_geometry_tools_tpu_torch import GridSpec
+    from voxelized_geometry_tools_tpu_torch.ops import voxelize
+    rng = np.random.default_rng(F1_SEED)
+    origin = np.eye(4, dtype=np.float32)
+    origin[:3, :3] = quat_rotation(rng.normal(size=4))
+    origin[:3, 3] = rng.uniform(-0.5, 0.5, 3)
+    cam_grid = np.full(3, F1_N) * F1_RES * rng.uniform(0.3, 0.7, 3)
+    cam_rot = quat_rotation(rng.normal(size=4))
+    pts = rng.uniform(-2, 2, (F1_POINTS, 3)).astype(np.float32)
+    o = origin.astype(np.float64)
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, :3] = o[:3, :3] @ cam_rot
+    pose[:3, 3] = o[:3, :3] @ cam_grid + o[:3, 3]
+    spec = GridSpec.from_voxel_counts(F1_RES, (F1_N,) * 3)
+    return spec, origin, voxelize.PointCloud.create(pts, pose, max_range=5.0,
+                                                    device=device)
+
+
+def rotated_pipeline_origin():
+    """X_WG of the pipeline's 512^3 grid turned about its centre by
+    ``ROTATED_ANGLES``, so the pipeline's cameras still look into it."""
+    (cx, sx), (cy, sy), (cz, sz) = ((np.cos(a), np.sin(a))
+                                    for a in ROTATED_ANGLES)
+    rx = np.array([[1, 0, 0], [0, cx, -sx], [0, sx, cx]])
+    ry = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+    rz = np.array([[cz, -sz, 0], [sz, cz, 0], [0, 0, 1]])
+    rot = rz @ ry @ rx
+    centre = np.full(3, PIPE_N * PIPE_RES / 2)
+    m = np.eye(4, dtype=np.float32)
+    m[:3, :3] = rot
+    m[:3, 3] = centre - rot @ centre
+    return m
+
+
+def termwise_grid_frame(origin, pose):
+    """``inverse(X_WG) @ X_WC`` with each product rounded before the sums
+    (k in order), as the port formed it before its transforms took XLA's
+    fused multiply-add chain."""
+    def product(a, b):
+        out = a[:, :1] * b[:1, :]
+        for k in range(1, a.shape[1]):
+            out = out + a[:, k:k + 1] * b[k:k + 1, :]
+        return out
+
+    m = torch.from_numpy(origin)
+    rt = m[:3, :3].T
+    inv = torch.eye(4)
+    inv[:3, :3] = rt
+    inv[:3, 3:] = product(-rt, m[:3, 3:])
+    return product(inv, pose)
+
+
+def phase_rotated_carve():
+    """Fault F1 on the card: under grid origins rotated about all three
+    axes (F1's 64^3 input, and the pipeline's first camera into 512^3), the
+    carve's X_GC on the card is the CPU's bit for bit, and the tiled carve
+    kernel's grids equal the plain walk on the card (and, at 64^3, the
+    plain walk on the CPU)."""
+    from voxelized_geometry_tools_tpu_torch import GridSpec
+    from voxelized_geometry_tools_tpu_torch.kernels import carve
+    from voxelized_geometry_tools_tpu_torch.ops import voxelize
+
+    t_phase = time.monotonic()
+    big = GridSpec.from_voxel_counts(PIPE_RES, (PIPE_N,) * 3)
+    cases = [("F1 64^3", *f1_scene("cuda"), True),
+             (f"pipeline camera 0, {PIPE_N}^3", big, rotated_pipeline_origin(),
+              pipeline_clouds("cuda")[0], False)]
+    for name, spec, origin, cloud, on_cpu in cases:
+        origin_card = torch.from_numpy(origin).cuda()
+        host = voxelize.PointCloud.create(
+            cloud.points.cpu(), cloud.origin_transform.cpu(),
+            float(cloud.max_range), device="cpu")
+        x_card = voxelize._grid_frame_transform(origin_card, cloud).cpu()
+        x_cpu = voxelize._grid_frame_transform(torch.from_numpy(origin), host)
+        if not torch.equal(x_card.view(torch.int32), x_cpu.view(torch.int32)):
+            raise AssertionError(f"{name}: X_GC on the card differs from the "
+                                 f"CPU's:\n{x_card}\n{x_cpu}")
+        # The products rounded term by term (the port before the fix).
+        flips = int((termwise_grid_frame(origin, host.origin_transform)
+                     != x_cpu).sum())
+        before = carve.launches_tiled
+        t0 = time.monotonic()
+        got = voxelize.raycast_pointcloud(spec, origin_card, cloud)
+        torch.cuda.synchronize()
+        kernel_ms = (time.monotonic() - t0) * 1e3
+        if carve.launches_tiled != before + 1:
+            raise AssertionError(f"{name}: raycast_pointcloud launched the "
+                                 f"tiled kernel {carve.launches_tiled - before}"
+                                 " times, expected once")
+        plain = voxelize.raycast_pointcloud(spec, origin_card, cloud,
+                                            backend="plain")
+        refs = [("plain walk on the card", plain)]
+        if on_cpu:
+            refs.append(("plain walk on the CPU", voxelize.raycast_pointcloud(
+                spec, torch.from_numpy(origin), host)))
+        for what, ref in refs:
+            if not grids_equal(got, ref):
+                raise AssertionError(f"{name}: the tiled carve kernel differs "
+                                     f"from the {what}")
+        log(f"rotated carve, {name}: X_GC on the card equal to the CPU's "
+            f"(a term-by-term product differs in {flips} of 16 elements); "
+            f"tiled kernel ({kernel_ms:.2f} ms a call, setup included) "
+            f"bitwise equal to the {' and the '.join(w for w, _ in refs)}; "
+            f"free marks {int(got.seen_free.sum())}, filled marks "
+            f"{int(got.seen_filled.sum())}")
+        del got, plain, refs
+    log(f"phase_rotated_carve: {time.monotonic() - t_phase:.1f} s")
+
+
+def _timed(fn):
+    """(fn(), ms) with the card synchronized after."""
+    t0 = time.monotonic()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.monotonic() - t0) * 1e3
+
+
+def phase_mapper():
+    """ROADMAP item 9's OnlineMapper at 512^3, 0.01 m: the pipeline's four
+    clouds integrated one at a time (each a tiled-kernel carve), the same
+    four folded by integrate_frames into a fresh mapper (equal occupancy),
+    both against the plain walk on the card followed by combine_and_filter,
+    bitwise; then the cached SDF (the staged best-first EDT kernel), a
+    640x480 64-step render from the last cloud's camera and a 5-iteration
+    localize against it. Prints each phase's time and the peak memory."""
+    from voxelized_geometry_tools_tpu_torch import GridSpec
+    from voxelized_geometry_tools_tpu_torch.models.online_mapper import (
+        OnlineMapper)
+    from voxelized_geometry_tools_tpu_torch.models import fusion_pipeline
+    from voxelized_geometry_tools_tpu_torch.ops import render, voxelize
+
+    t_phase = time.monotonic()
+    spec = GridSpec.from_voxel_counts(PIPE_RES, (PIPE_N,) * 3)
+    clouds = pipeline_clouds("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    mapper = OnlineMapper(spec, frame="world", device="cuda")
+    frame_ms = [_timed(lambda c=c: mapper.integrate(c))[1] for c in clouds]
+    counts = read_launches()
+    if counts["carve_tiled"] != len(clouds) or sum(counts.values()) != len(
+            clouds):
+        raise AssertionError(f"the mapper's integrate launches: {counts}, "
+                             f"expected the tiled carve kernel once for each "
+                             f"of {len(clouds)} frames")
+    fold = OnlineMapper(spec, frame="world", device="cuda")
+    _, fold_ms = _timed(lambda: fold.integrate_frames(clouds))
+    occ = mapper.occupancy_map.occupancy
+    if not torch.equal(fold.occupancy_map.occupancy, occ):
+        raise AssertionError("integrate_frames' occupancy differs from "
+                             "integrate's, frame by frame")
+    if (mapper.frames_integrated, fold.frames_integrated) != (4, 4):
+        raise AssertionError("frames_integrated")
+    del fold
+    ref = torch.zeros(spec.counts, dtype=torch.float32, device="cuda")
+    eye = mapper.occupancy_map.origin_transform
+    for cloud in clouds:
+        g = voxelize.raycast_pointcloud(spec, eye, cloud, backend="plain")
+        ref = voxelize.combine_and_filter(voxelize.FilterOptions(),
+                                          g.seen_free[None],
+                                          g.seen_filled[None], ref)
+        del g
+    if not torch.equal(ref, occ):
+        raise AssertionError("the mapper's occupancy differs from the plain "
+                             "walk followed by combine_and_filter")
+    del ref
+    values = [int((occ == v).sum()) for v in (0.0, 0.5, 1.0)]
+    if not all(values):
+        raise AssertionError(f"mapper occupancy free/unknown/filled {values}")
+
+    reset_launches()
+    with torch.no_grad():
+        sdf, sdf_ms = _timed(mapper.sdf)
+    counts = read_launches()
+    if counts["edt_bestfirst_staged"] != 2 or sum(counts.values()) != 2:
+        raise AssertionError(f"the mapper's SDF launches: {counts}, expected "
+                             "the staged best-first EDT kernel twice")
+    if mapper.sdf() is not sdf or not bool(
+            torch.isfinite(sdf.distances).all()):
+        raise AssertionError("the mapper's SDF is not cached or not finite")
+
+    camera = render.PinholeCamera.create(
+        clouds[-1].origin_transform, IMG_W, IMG_H, focal=CLOUD_FOCAL,
+        cx=IMG_W / 2, cy=IMG_H / 2, device="cuda")
+    with torch.no_grad():
+        res, render_ms = _timed(lambda: mapper.render_depth(
+            camera, num_steps=NUM_STEPS))
+    hit = float(res.hit.float().mean())
+    if not hit > 0.5 or not bool(torch.isfinite(res.depth).all()):
+        raise AssertionError(f"mapper render: hit fraction {hit}")
+    guess = dataclasses.replace(camera, pose=fusion_pipeline.perturb_pose(
+        camera.pose, torch.tensor((0.0, 0.0, 0.0, 0.0, 0.0, 0.02),
+                                  device="cuda")))
+    fit, localize_ms = _timed(lambda: mapper.localize(
+        guess, res.depth, num_iters=LOCALIZE_ITERS, learning_rate=POSE_LR))
+    losses = fit.losses.cpu().numpy()
+    if not np.isfinite(losses).all() or not fit.valid_fraction > 0.5:
+        raise AssertionError(f"localize: losses {losses}, valid fraction "
+                             f"{fit.valid_fraction}")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"mapper {PIPE_N}^3, {len(clouds)} frames of {IMG_W}x{IMG_H}: "
+        f"integrate {[round(t, 2) for t in frame_ms]} ms a frame, "
+        f"integrate_frames {fold_ms:.2f} ms for {len(clouds)} (equal "
+        f"occupancy, equal to the plain walk + combine_and_filter); sdf "
+        f"{sdf_ms:.2f} ms; render {render_ms:.2f} ms (hit fraction "
+        f"{hit:.6f}); localize {LOCALIZE_ITERS} iterations {localize_ms:.2f} "
+        f"ms, losses {losses.tolist()}, valid fraction "
+        f"{fit.valid_fraction:.6f}; occupancy free/unknown/filled {values}; "
+        f"peak device memory {peak / 2 ** 30:.3f} GiB")
+    log(f"phase_mapper: {time.monotonic() - t_phase:.1f} s")
+
+
+def phase_fits():
+    """ROADMAP item 9's fits on bench.py's 512^3 sphere at 640x480, 48
+    steps: fit_camera_pose for 5 iterations without and with remat (both
+    peak memories and loss histories, which agree within rtol 1e-4),
+    fit_voxels with two cameras for 3 iterations once with a CornerTable
+    request and once with a CornerPairTable request (each loss falls), and
+    pair-table queries against brick-table queries on 10^6 random points,
+    bitwise."""
+    from voxelized_geometry_tools_tpu_torch import GridSpec
+    from voxelized_geometry_tools_tpu_torch.models import fusion_pipeline
+    from voxelized_geometry_tools_tpu_torch.ops import edt, render, sdf_query
+
+    t_phase = time.monotonic()
+    spec = GridSpec.from_voxel_counts(RESOLUTION, (GRID_N,) * 3)
+    mask = sphere_mask(GRID_N, "cuda")
+    reset_launches()
+    with torch.no_grad():
+        sdf = edt.extract_signed_distance_field(mask, spec, None,
+                                                frame="bench")
+    torch.cuda.synchronize()
+    counts = read_launches()
+    if counts["edt_bestfirst_staged"] != 2 or sum(counts.values()) != 2:
+        raise AssertionError(f"the fits' SDF launches: {counts}")
+    del mask
+    sizes = np.asarray(spec.grid_sizes)
+    front = np.eye(4, dtype=np.float32)
+    front[:3, 3] = sizes / 2.0 - np.array([0.0, 0.0, 1.2 * sizes[2]])
+    side = look_along((1.0, 0.0, 0.0),
+                      sizes / 2.0 - np.array([1.2 * sizes[0], 0.0, 0.0]))
+    cams = [render.PinholeCamera.create(p, IMG_W, IMG_H, focal=520.0,
+                                        device="cuda") for p in (front, side)]
+    with torch.no_grad():
+        frames = [render.render_depth(sdf, c, num_steps=FIT_STEPS)
+                  for c in cams]
+    targets = [f.depth for f in frames]
+    target_hits = float(frames[0].hit.float().mean())
+    del frames
+    base = dataclasses.replace(cams[0], pose=fusion_pipeline.perturb_pose(
+        cams[0].pose, torch.tensor(POSE_FIT_TANGENT, device="cuda")))
+    pose_fits = {}
+    for remat in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fit, ms = _timed(lambda: fusion_pipeline.fit_camera_pose(
+            sdf, base, targets[0], num_iters=POSE_FIT_ITERS,
+            learning_rate=POSE_LR, num_steps=FIT_STEPS, remat=remat))
+        losses = fit.losses.cpu().numpy()
+        peak = torch.cuda.max_memory_allocated()
+        pose_fits[remat] = losses
+        log(f"fit_camera_pose {GRID_N}^3 sphere, {IMG_W}x{IMG_H}, "
+            f"{FIT_STEPS} steps, remat={remat}: {ms / POSE_FIT_ITERS:.1f} ms "
+            f"a step ({POSE_FIT_ITERS} steps, final render included), peak "
+            f"device memory {peak / 2 ** 30:.3f} GiB, losses "
+            f"{losses.tolist()}, valid fraction {fit.valid_fraction:.6f} "
+            f"(the target's hits {target_hits:.6f})")
+        if not np.isfinite(losses).all() or not (
+                fit.valid_fraction > 0.5 * target_hits):
+            raise AssertionError(f"fit_camera_pose: losses {losses}, valid "
+                                 f"fraction {fit.valid_fraction}, the "
+                                 f"target's hits {target_hits}")
+    if not np.allclose(pose_fits[True], pose_fits[False], rtol=REMAT_RTOL,
+                       atol=0.0):
+        raise AssertionError("remat changed the pose fit's losses beyond "
+                             f"rtol {REMAT_RTOL}: {pose_fits}")
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    noisy = sdf.replace(distances=sdf.distances + VOXEL_NOISE * RESOLUTION
+                        * torch.randn(spec.counts, generator=gen,
+                                      device="cuda"))
+    for build in (sdf_query.build_corner_table,
+                  sdf_query.build_corner_pair_table):
+        with torch.no_grad():
+            proto = build(noisy)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        (refined, losses), ms = _timed(lambda: fusion_pipeline.fit_voxels(
+            noisy, cams, targets, num_iters=VOXEL_FIT_ITERS,
+            learning_rate=VOXEL_LR * RESOLUTION, num_steps=FIT_STEPS,
+            corner_table=proto))
+        losses = losses.cpu().numpy()
+        peak = torch.cuda.max_memory_allocated()
+        kind = type(proto).__name__
+        log(f"fit_voxels {GRID_N}^3, 2 cameras, {kind} request: "
+            f"{ms / VOXEL_FIT_ITERS:.1f} ms a step, peak device memory "
+            f"{peak / 2 ** 30:.3f} GiB, losses {losses.tolist()}")
+        if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+            raise AssertionError(f"fit_voxels ({kind}) losses {losses}")
+        if not refined.locked:
+            raise AssertionError("fit_voxels returned an unlocked field")
+        del proto, refined
+    del noisy
+
+    with torch.no_grad():
+        brick = sdf_query.build_corner_table(sdf)
+        pair = sdf_query.build_corner_pair_table(sdf)
+        lo = torch.tensor(-0.1 * sizes, dtype=torch.float32, device="cuda")
+        span = torch.tensor(1.2 * sizes, dtype=torch.float32, device="cuda")
+        pts = lo + span * torch.rand((PAIR_QUERY_POINTS, 3), generator=gen,
+                                     device="cuda")
+        qb = sdf_query.estimate_location_distance_fast(sdf, brick, pts)
+        qp = sdf_query.estimate_location_distance_fast(sdf, pair, pts)
+        if not torch.equal(qb.valid, qp.valid) or not torch.equal(
+                qb.value.view(torch.int32), qp.value.view(torch.int32)):
+            raise AssertionError("pair-table queries differ from brick-table "
+                                 "queries")
+        brick_ms = cuda_ms(lambda: sdf_query.estimate_location_distance_fast(
+            sdf, brick, pts), 5)
+        pair_ms = cuda_ms(lambda: sdf_query.estimate_location_distance_fast(
+            sdf, pair, pts), 5)
+    log(f"pair table {GRID_N}^3: {PAIR_QUERY_POINTS} random queries "
+        f"({int(qb.valid.sum())} valid) bitwise equal to the brick table's; "
+        f"query {pair_ms:.3f} ms (brick {brick_ms:.3f} ms); table "
+        f"{pair.rows.numel() * 4 / 2 ** 30:.3f} GiB (brick "
+        f"{brick.rows.numel() * 4 / 2 ** 30:.3f} GiB)")
+    del brick, pair, pts, qb, qp, sdf
+    log(f"phase_fits: {time.monotonic() - t_phase:.1f} s")
+
+
 def main():
     name = phase_device()
     phase_build()
@@ -1877,6 +2252,12 @@ def main():
      probe_bounds) = phase_probes()
     phase_carve()
     carve_rows = phase_pipeline(camera)
+    t_slice = time.monotonic()
+    phase_rotated_carve()
+    phase_mapper()
+    phase_fits()
+    log(f"rotated carve, mapper and fits phases: "
+        f"{time.monotonic() - t_slice:.1f} s")
     plain_512 = t_edt["plain_y"] + t_edt["plain_z"]
     kernels = []
     for kname, (source, replaces) in KERNELS.items():

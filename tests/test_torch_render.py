@@ -182,7 +182,8 @@ def test_render_gradients_match_jax(scene, table):
 
 @pytest.mark.parametrize("kwargs", [
     dict(mip=object()),
-    dict(remat=True),
+    dict(early_exit=True, coarse_factor=4, head_steps=0, tail_chunks=4,
+         relax=2.0),
     dict(early_exit=True, tail_chunks=1, relax=1.5),
 ])
 def test_unported_options_raise(scene, kwargs):

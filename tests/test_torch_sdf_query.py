@@ -198,9 +198,20 @@ def test_gradients_match_jax(fields, fast):
                                atol=GRAD_ATOL)
 
 
-def test_pair_table_not_ported(fields):
+def test_pair_table_not_ported(fields, tables):
+    """The pair table is ported (tests/test_torch_corner_pair.py holds it
+    against the JAX package): its queries are the brick table's bits, and
+    a table of any other type raises."""
     _, ts = fields
-    with pytest.raises(NotImplementedError, match="CornerPairTable"):
+    _, tt = tables
+    pts = torch.from_numpy(_points(ts.spec.grid_sizes, 0))
+    pair = tq.estimate_location_distance_fast(
+        ts, tq.build_corner_pair_table(ts), pts)
+    brick = tq.estimate_location_distance_fast(ts, tt, pts)
+    assert torch.equal(pair.valid, brick.valid)
+    assert torch.equal(pair.value.view(torch.int32),
+                       brick.value.view(torch.int32))
+    with pytest.raises(TypeError, match="CornerPairTable"):
         tq.estimate_location_distance_fast(
             ts, (torch.zeros(4, 8),), torch.zeros(1, 3))
 

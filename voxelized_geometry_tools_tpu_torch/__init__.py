@@ -17,7 +17,10 @@ schedule: cone prepass, block-sorted tail, sparse final sample). Then
 pointcloud carving and fusion (``ops/voxelize.py``, ``ops/backends.py``:
 the hand-written carve kernel ``kernels/csrc/carve.cu`` on the card, the
 native C++ runtime in ``native/``) and the pipeline carve -> fuse -> EDT ->
-render (``models/fusion_pipeline.reconstruct``).
+render (``models/fusion_pipeline.reconstruct``), the z-pair corner table,
+the pose and voxel fits (``models/fusion_pipeline``, with ``remat``) and
+the online mapper (``models/online_mapper.OnlineMapper``). Transform
+products take the JAX package's bits (``core/transforms.matmul``).
 """
 
 from .core.grid import GridSpec

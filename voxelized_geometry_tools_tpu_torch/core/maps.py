@@ -64,7 +64,23 @@ class _MapBase:
         return self.spec.resolution
 
     def inverse_origin_transform(self) -> Tensor:
-        return transforms.invert_isometry(self.origin_transform)
+        """``invert_isometry(origin_transform)``. Every query asks for it,
+        so it is kept on the map, keyed by the transform's storage and
+        version (an inference tensor has no version: it is not written in
+        place outside inference mode). A transform that requires grad gets
+        it formed afresh under autograd."""
+        m = self.origin_transform
+        if m.requires_grad and torch.is_grad_enabled():
+            return transforms.invert_isometry(m)
+        key = (m.data_ptr(), None if m.is_inference() else m._version)
+        cached = self.__dict__.get("_inverse")
+        if cached is None or cached[0] != key:
+            # A normal tensor even under inference mode, so that autograd
+            # may save it later.
+            with torch.inference_mode(False), torch.no_grad():
+                cached = (key, transforms.invert_isometry(m))
+            object.__setattr__(self, "_inverse", cached)
+        return cached[1]
 
     def location_to_grid_index(self, p_world: Tensor) -> Tensor:
         p_grid = transforms.apply_isometry(

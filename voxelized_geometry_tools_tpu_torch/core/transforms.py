@@ -3,10 +3,19 @@
 Port of ``voxelized_geometry_tools_tpu/core/transforms.py`` (the subset the
 main path uses). An isometry is a plain row-major ``[4, 4]`` tensor; every
 helper keeps the dtype and device of its input.
+
+The JAX package forms its transform products (``compose``, the inverse's
+``-R^T t``) as XLA dots, and XLA's CPU dot computes each element as a
+fused multiply-add chain in ``k`` order, ``fma(a3, b3, fma(a2, b2, fma(a1,
+b1, a0 b0)))``, jitted or op by op. :func:`matmul` reproduces that chain
+bit for bit in float32 from exact IEEE float64 operations (see
+:func:`_fma_chain`), whatever the device, so grid-frame transforms, and
+every carve and query built on them, get the JAX package's bits.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .constants import constant
@@ -30,22 +39,84 @@ def isometry_from_translation(translation, dtype=torch.float32,
     return m
 
 
+def _fma_chain(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """``a @ b`` of float32 ``[m, K] @ [K, n]`` arrays as XLA's FMA chain:
+    ``k = 0`` rounded on its own, then each ``fma(a_k, b_k, acc)``
+    correctly rounded, from float64 operations that are exact IEEE: the
+    float64 product of two floats is exact; the float64 sum ``s = p + c``
+    is made round-to-odd (TwoSum's error ``e`` says where the exact sum
+    lies; an even ``s`` with ``e != 0`` moves one ulp toward it), and
+    round-to-odd to 53 bits then round-to-nearest to 24 bits is the
+    correctly rounded 24-bit sum."""
+    a64, b64 = a.astype(np.float64), b.astype(np.float64)
+    out = a[:, :1] * b[:1, :]
+    with np.errstate(all="ignore"):
+        for k in range(1, a.shape[1]):
+            p = a64[:, k:k + 1] * b64[k:k + 1, :]
+            c = out.astype(np.float64)
+            s = p + c
+            bb = s - p
+            e = (p - (s - bb)) + (c - bb)
+            bump = (e != 0) & np.isfinite(e) & ((s.view(np.int64) & 1) == 0)
+            s = np.where(bump, np.nextafter(s, np.copysign(np.inf, e)), s)
+            out = s.astype(np.float32)
+    return out
+
+
+def _product(a: Tensor, b: Tensor) -> Tensor:
+    """``a @ b`` for ``[m, K] @ [K, n]``: in float32 the FMA chain of
+    :func:`_fma_chain`, formed on the host (a 4x4 chain is some 140
+    elementwise operations, each a kernel launch on a card, about 3 ms of
+    host time; the copy to the host waits for the card once); in other
+    dtypes the products rounded, then summed in ``k`` order."""
+    if a.dtype == b.dtype == torch.float32:
+        out = _fma_chain(a.detach().cpu().numpy(), b.detach().cpu().numpy())
+        return torch.from_numpy(out).to(a.device)
+    out = a[:, :1] * b[:1, :]
+    for k in range(1, a.shape[1]):
+        out = out + a[:, k:k + 1] * b[k:k + 1, :]
+    return out
+
+
+class _Matmul(torch.autograd.Function):
+    """The forward is :func:`_product`; the backward is the matmul's
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _product(a, b)
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, b = ctx.saved_tensors
+        grad_a = grad @ b.T if ctx.needs_input_grad[0] else None
+        grad_b = a.T @ grad if ctx.needs_input_grad[1] else None
+        return grad_a, grad_b
+
+
+def matmul(a: Tensor, b: Tensor) -> Tensor:
+    """``a @ b`` of two matrices (or a matrix and a vector) with the JAX
+    package's bits on the CPU: in float32, each element is the fused
+    multiply-add chain of XLA's dot (exact on every device).
+    Differentiable."""
+    if b.dim() == 1:
+        return _Matmul.apply(a, b[:, None])[:, 0]
+    return _Matmul.apply(a, b)
+
+
 def invert_isometry(m: Tensor) -> Tensor:
-    """Exact inverse of an isometry: ``[R^T, -R^T t]`` (differentiable)."""
+    """Exact inverse of an isometry: ``[R^T, -R^T t]``, with ``-R^T t``
+    formed as the JAX package forms it, ``(-R^T) @ t`` (differentiable)."""
     rt = m[:3, :3].T
-    t = -rotate_vector(rt, m[:3, 3])
+    t = matmul(-rt, m[:3, 3])
     bottom = constant(((0.0, 0.0, 0.0, 1.0),), m.dtype, m.device)
     return torch.cat([torch.cat([rt, t[:, None]], dim=1), bottom], dim=0)
 
 
 def compose(a: Tensor, b: Tensor) -> Tensor:
-    """The product ``a @ b`` of two ``[4, 4]`` transforms, written as sums
-    of products in ``k`` order (no matmul, whose order of sums is the
-    library's)."""
-    out = a[:, :1] * b[:1, :]
-    for k in range(1, 4):
-        out = out + a[:, k:k + 1] * b[k:k + 1, :]
-    return out
+    """The product ``a @ b`` of two ``[4, 4]`` transforms (:func:`matmul`)."""
+    return matmul(a, b)
 
 
 def rotate_vector(m: Tensor, vectors: Tensor) -> Tensor:

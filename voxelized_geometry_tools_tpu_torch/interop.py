@@ -13,9 +13,10 @@ import torch
 from .core.device import default_device
 from .core.grid import GridSpec
 from .core.maps import OccupancyMap, SignedDistanceField
+from .models.online_mapper import OnlineMapper
 from .ops.render import PinholeCamera
-from .ops.sdf_query import CornerTable
-from .ops.voxelize import PointCloud
+from .ops.sdf_query import CornerPairTable, CornerTable
+from .ops.voxelize import FilterOptions, PointCloud
 
 
 def grid_spec_from_fields(counts: Sequence[int], resolution: float,
@@ -72,6 +73,19 @@ def corner_table_from_numpy(rows: np.ndarray, device=None) -> CornerTable:
     return CornerTable(rows=torch.tensor(rows, device=default_device(device)))
 
 
+def corner_pair_table_from_numpy(rows: np.ndarray,
+                                 device=None) -> CornerPairTable:
+    """A ``CornerPairTable`` from a JAX ``CornerPairTable.rows`` (the same
+    packed ``[ceil(N / 4), 8]`` layout), on ``device`` (None: the CUDA
+    card)."""
+    rows = np.asarray(rows)
+    if rows.ndim != 2 or rows.shape[1] != 8:
+        raise ValueError(f"corner pair table rows must be [ceil(N / 4), 8], "
+                         f"got {rows.shape}")
+    return CornerPairTable(
+        rows=torch.tensor(rows, device=default_device(device)))
+
+
 def pointcloud_from_numpy(points: np.ndarray, origin_transform: np.ndarray,
                           max_range=float("inf"), device=None) -> PointCloud:
     """A ``PointCloud`` from a JAX ``PointCloud``'s leaves (points, pose,
@@ -95,3 +109,23 @@ def occupancy_map_from_numpy(spec: GridSpec, occupancy: np.ndarray,
     base = OccupancyMap.create(spec, np.asarray(origin_transform), frame,
                                device=dev)
     return base.replace(occupancy=occ)
+
+
+def online_mapper_from_numpy(spec: GridSpec, origin_transform: np.ndarray,
+                             frame: str, occupancy: np.ndarray,
+                             frames_integrated: int,
+                             filter_options: FilterOptions = FilterOptions(),
+                             max_steps: Optional[int] = None,
+                             carve_run_axis: Optional[int] = None,
+                             device=None) -> OnlineMapper:
+    """An ``OnlineMapper`` that continues a JAX mapper's state: its map's
+    pose, frame and occupancy (``mapper.occupancy_map``) and its
+    ``frames_integrated``, with the mapper's options, on ``device`` (None:
+    the CUDA card). The SDF cache starts empty."""
+    mapper = OnlineMapper(spec, np.asarray(origin_transform), frame,
+                          filter_options=filter_options, max_steps=max_steps,
+                          carve_run_axis=carve_run_axis, device=device)
+    occ = occupancy_map_from_numpy(spec, occupancy, origin_transform, frame,
+                                   device=mapper.occupancy_map.occupancy.device)
+    mapper._set_occupancy(occ.occupancy, int(frames_integrated))
+    return mapper

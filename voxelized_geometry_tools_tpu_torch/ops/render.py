@@ -23,9 +23,12 @@ than the full-width iterations a sparser test would run past the last live
 ray. Sorts are stable, so chunk membership (and with it the iteration
 counters) follows the JAX package's order.
 
-Rays that miss return ``hit=False`` with depth ``max_depth``. The mip skip,
-over-relaxation, remat, the pair table and the batched render are not
-ported yet and raise, naming their ROADMAP item.
+Either table type (:class:`..ops.sdf_query.CornerTable` or
+``CornerPairTable``) serves every schedule, and ``remat=True``
+rematerializes each fixed-march step in the backward pass
+(``torch.utils.checkpoint``). Rays that miss return ``hit=False`` with
+depth ``max_depth``. The mip skip, over-relaxation and the batched render
+are not ported yet and raise, naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core import transforms
 from ..core.constants import constant
@@ -183,7 +187,7 @@ def sphere_trace(sdf: SignedDistanceField, origins: Tensor, dirs: Tensor,
                  surface_threshold: Optional[float] = None,
                  max_depth: float = 100.0,
                  step_scale: float = 1.0,
-                 corner_table: Optional[sdf_query.CornerTable] = None,
+                 corner_table: Optional[sdf_query.Table] = None,
                  early_exit: bool = False,
                  mip=None,
                  coarse_steps: int = 64,
@@ -205,7 +209,8 @@ def sphere_trace(sdf: SignedDistanceField, origins: Tensor, dirs: Tensor,
     leaves the grid, or ``num_steps`` is spent. The options are the JAX
     package's (see its ``sphere_trace``):
 
-    * ``corner_table``: each sample is one row gather.
+    * ``corner_table``: each sample is one row gather (a ``CornerTable``)
+      or four (a ``CornerPairTable``).
     * ``early_exit``: stop once no ray is alive. After ``head_steps``
       full-width steps, the live rays are sorted (stable) by estimated
       remaining steps (the decay of their last two samples, or ``-sort_key``
@@ -225,7 +230,13 @@ def sphere_trace(sdf: SignedDistanceField, origins: Tensor, dirs: Tensor,
       :func:`gather_rows_from_stats`): iteration counts as int32 CPU
       tensors, static widths as ints.
 
-    Not ported yet, and raising: ``mip``, ``relax > 1``, ``remat``."""
+    * ``remat`` (fixed march): each step is rematerialized in the backward
+      pass instead of keeping its gather indices and weights
+      (``torch.utils.checkpoint``, non-reentrant); values and gradients
+      are the same bits. The early-exit schedule ignores it, as the JAX
+      package's does.
+
+    Not ported yet, and raising: ``mip``, ``relax > 1``."""
     if surface_threshold is None:
         surface_threshold = 0.25 * sdf.resolution
     relax = float(relax)
@@ -236,8 +247,6 @@ def sphere_trace(sdf: SignedDistanceField, origins: Tensor, dirs: Tensor,
         raise _todo("mip", "ROADMAP.md queue 1 item 5d, SdfMip")
     if relax > 1.0:
         raise _todo("relax > 1", "ROADMAP.md queue 1 item 5h")
-    if remat:
-        raise _todo("remat", "ROADMAP.md queue 1 item 5h")
 
     dev = origins.device
     thresh = _f32(surface_threshold, dev)
@@ -336,10 +345,16 @@ def sphere_trace(sdf: SignedDistanceField, origins: Tensor, dirs: Tensor,
                 conv, origins, dirs, t_stop, sort_key, eps, remaining,
                 int(tail_chunks), sort_block, stats)
     else:
+        def step(t, alive):
+            return advance_ray(t, alive, origins, dirs, t_stop)[:2]
+
         t_final, alive = t0, alive0
         for _ in range(num_steps):
-            t_final, alive, _, _ = advance_ray(t_final, alive, origins,
-                                               dirs, t_stop)
+            if remat:
+                t_final, alive = checkpoint(step, t_final, alive,
+                                            use_reentrant=False)
+            else:
+                t_final, alive = step(t_final, alive)
         stats["fine_head_iters"] = _counter(num_steps)
     stats["fine_head_width"] = n_rays
 
@@ -491,7 +506,7 @@ def _sparse_final_sample(sample, points, valid, d_carried, conv, bs, k, inf,
 def _cone_prepass(sdf: SignedDistanceField, camera: PinholeCamera,
                   factor: int, num_steps: int,
                   surface_threshold: float, max_depth: float,
-                  corner_table: Optional[sdf_query.CornerTable],
+                  corner_table: Optional[sdf_query.Table],
                   max_cone_steps: Optional[int] = None,
                   cone_tail_chunks: int = 1,
                   cone_refine: Optional[int] = None,
@@ -812,7 +827,7 @@ def block_relayout(height: int, width: int, factor: int,
 def render_depth(sdf: SignedDistanceField, camera: PinholeCamera,
                  num_steps: int = 64, max_depth: float = 100.0,
                  surface_threshold: Optional[float] = None,
-                 corner_table: Optional[sdf_query.CornerTable] = None,
+                 corner_table: Optional[sdf_query.Table] = None,
                  early_exit: bool = False,
                  mip=None,
                  coarse_factor: int = 0,

@@ -2,15 +2,16 @@
 
 Port of ``voxelized_geometry_tools_tpu/ops/sdf_query.py`` (the main-path
 subset): trilinear distance estimation with corrected cell-center distances,
-and the corner-brick table that turns a sample's 8 corner gathers into one
-row gather. Every query is batched over ``[..., 3]`` points, branch-free
+the corner-brick table that turns a sample's 8 corner gathers into one row
+gather, and the z-pair table (2x the grid's memory) that turns them into
+four. Every query is batched over ``[..., 3]`` points, branch-free
 (``torch.where``), and differentiable in the points and in the distances
 through autograd.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Tuple, Union
 
 import torch
 
@@ -19,10 +20,6 @@ from ..core.constants import constant
 from ..core.maps import SignedDistanceField
 
 Tensor = torch.Tensor
-
-_PAIR_TABLE_TODO = ("CornerPairTable is not ported yet "
-                    "(ROADMAP.md queue 1 item 5c, CornerPairTable)")
-
 
 class DistanceQuery(NamedTuple):
     """Batched ``EstimateDistanceQuery``: values and a validity mask."""
@@ -193,15 +190,55 @@ def build_corner_table(sdf: SignedDistanceField, dtype=None) -> CornerTable:
     return CornerTable(rows=rows)
 
 
-def estimate_location_distance_fast(sdf: SignedDistanceField,
-                                    table: CornerTable,
-                                    p_world: Tensor) -> DistanceQuery:
+class CornerPairTable(NamedTuple):
+    """Z-pair rows, packed four pairs to a row: ``[ceil(num_cells / 4), 8]``
+    where flat cell ``i``'s pair, the corrected distances at cells ``b``
+    and ``b + (0, 0, 1)`` (z clamped to the grid edge), is lanes
+    ``(i % 4) * 2`` and ``+ 1`` of row ``i // 4``; the padding lanes are
+    zero. The JAX package's layout (its packing avoids a lane-padded TPU
+    layout), so rows move between the packages as they are; a query reads
+    the rows as ``[*, 2]`` pairs and gathers four of them."""
+    rows: Tensor
+
+
+Table = Union[CornerTable, CornerPairTable]
+
+
+def build_corner_pair_table(sdf: SignedDistanceField,
+                            dtype=None) -> CornerPairTable:
+    """Build the z-pair table from two shifted slices of the z-edge-padded
+    corrected grid, ``_TABLE_SLAB`` X planes at a time, into one
+    preallocated flat tensor (2x the grid's memory). Differentiable in
+    ``sdf.distances``. ``dtype`` defaults to the field's own."""
+    d = sdf.distances
+    dtype = d.dtype if dtype is None else dtype
+    nx, ny, nz = d.shape
+    half = _scalar(sdf.resolution * 0.5, d)
+    plane = ny * nz * 2
+    padded = -(-(nx * ny * nz) // 4) * 4
+    flat = torch.empty(padded * 2, dtype=dtype, device=d.device)
+    flat[nx * plane:] = 0
+    for x0 in range(0, nx, _TABLE_SLAB):
+        x1 = min(x0 + _TABLE_SLAB, nx)
+        pl = _pull_to_surface(d[x0:x1], half)
+        pl = torch.cat([pl, pl[:, :, -1:]], dim=2)
+        flat[x0 * plane:x1 * plane] = torch.stack(
+            [pl[..., :nz], pl[..., 1:]], dim=-1).reshape(-1).to(dtype)
+    return CornerPairTable(rows=flat.view(padded // 4, 8))
+
+
+def estimate_location_distance_fast(
+        sdf: SignedDistanceField,
+        table: Table, p_world: Tensor) -> DistanceQuery:
     """:func:`estimate_location_distance` semantics with ONE row gather per
-    sample from a :class:`CornerTable`. Differentiable in ``p_world`` and
+    sample from a :class:`CornerTable`, or four pair gathers from a
+    :class:`CornerPairTable`. Both assemble the same 8-corner vector, so the
+    two tables give the same bits. Differentiable in ``p_world`` and
     ``table.rows`` (hence in ``sdf.distances`` when the table was built from
     them under autograd)."""
-    if not isinstance(table, CornerTable):
-        raise NotImplementedError(_PAIR_TABLE_TODO)
+    if not isinstance(table, (CornerTable, CornerPairTable)):
+        raise TypeError(f"table must be a CornerTable or a CornerPairTable, "
+                        f"got {type(table).__name__}")
     spec = sdf.spec
     rows = table.rows
     dt = rows.dtype
@@ -219,11 +256,27 @@ def estimate_location_distance_fast(sdf: SignedDistanceField,
                       torch.clamp(counts - 2, min=0))
     t = s - b.to(dt)
 
-    ny, nz = spec.counts[1], spec.counts[2]
-    flat = (b[..., 0].long() * (ny * nz) + b[..., 1].long() * nz
-            + b[..., 2].long())
-    corners = rows.index_select(0, flat.reshape(-1)).reshape(
-        *flat.shape, 8)
+    nx, ny, nz = spec.counts
+    bx, by, bz = b[..., 0].long(), b[..., 1].long(), b[..., 2].long()
+    if isinstance(table, CornerPairTable):
+        # Four z pairs at (bx | bx+1, by | by+1, bz), the x and y neighbours
+        # clamped onto the edge cell as the brick build clamps them;
+        # corners ordered c = 4*dx + 2*dy + dz, as in a CornerTable row.
+        pairs = rows.reshape(-1, 2)
+        bx1 = torch.clamp(bx + 1, max=nx - 1)
+        by1 = torch.clamp(by + 1, max=ny - 1)
+
+        def pair(x, y):
+            flat = x * (ny * nz) + y * nz + bz
+            return pairs.index_select(0, flat.reshape(-1)).reshape(
+                *flat.shape, 2)
+
+        corners = torch.cat([pair(bx, by), pair(bx, by1), pair(bx1, by),
+                             pair(bx1, by1)], dim=-1)
+    else:
+        flat = bx * (ny * nz) + by * nz + bz
+        corners = rows.index_select(0, flat.reshape(-1)).reshape(
+            *flat.shape, 8)
 
     tx = t[..., 0:1]
     ty = t[..., 1:2]
