@@ -35,7 +35,12 @@ and integrate_frames bitwise equal to each other and to the plain walk
 followed by the fusion filter, its SDF through the staged EDT kernel, a
 render and a localize) and the fits on bench.py's sphere (the pose fit
 with and without remat, the voxel fit with a brick-table and a pair-table
-request, pair-table queries bitwise against brick-table queries). Prints
+request, pair-table queries bitwise against brick-table queries). Last,
+the SDF's other consumers on bench.py's 512^3 sphere (``phase_queries``):
+the mip skip and relaxed renders against the plain early-exit render, a
+batch of four views each bitwise its own render, their clouds re-carved
+into a fresh mapper, 10^6-point queries, gradients and projections against
+the CPU, the extrema map and the float64 SDF. Prints
 human-readable lines, then a JSON line describing each kernel, then
 ``{"ok": true, "device": ...}`` as the last line. Any failure raises, and
 the script exits non-zero; without a CUDA card it exits non-zero before
@@ -2227,6 +2232,567 @@ def phase_fits():
     log(f"phase_fits: {time.monotonic() - t_phase:.1f} s")
 
 
+# -- The SDF's other consumers (mip, relax, batch, queries, extrema, f64) ----
+
+# Query points of the queries step, and of its CPU comparison.
+QUERY_POINTS = 1_000_000
+CPU_QUERY_POINTS = 10_000
+# Projections start in the shell up to this many voxels inside the sphere.
+SHELL_VOXELS = 4.0
+# tests/test_torch_sdf_gradients.py's tolerance for projected points.
+PROJECTION_ATOL = 2e-5
+# The extrema map's card-against-CPU grid, and the walk bound of its check.
+EXTREMA_CPU_N = 128
+CYCLE_WALK = 64
+# The float64 SDF's combine is held against the CPU's on this crop.
+F64_CROP = 64
+# The mip factors of the mip step.
+MIP_FACTORS = (8, 4)
+# Relax factors (early exit), and the one on the shipped schedule.
+RELAX_FACTORS = (1.3, 1.9)
+RELAX_SCHEDULE = 1.6
+# render_depth_batch's schedule (the JAX package's defaults, with the
+# corner table and coarse_factor 8) and each view's own render_depth on it.
+BATCH = dict(coarse_factor=8, cone_steps=32, cone_tail_chunks=8,
+             tail_chunks=64)
+BATCH_SINGLE = dict(early_exit=True, head_steps=0, **BATCH)
+
+
+def _step(steps, name, fn):
+    """``fn()`` with its wall time and peak device memory logged and kept
+    in ``steps``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.monotonic() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    steps.append((name, ms, peak))
+    log(f"queries step {name}: {ms:.1f} ms, peak device memory "
+        f"{peak / 2 ** 30:.3f} GiB")
+    return out
+
+
+def batch_views(spec):
+    """bench.py's camera and the same camera turned to look along +x, -x
+    and -z through the grid centre, 1.2 grid sizes out (bench.py's camera
+    itself looks along +z)."""
+    from voxelized_geometry_tools_tpu_torch.ops import render
+
+    sizes = np.asarray(spec.grid_sizes)
+    center = sizes / 2.0
+    poses = []
+    for fwd in ((0.0, 0.0, 1.0), (1.0, 0.0, 0.0), (-1.0, 0.0, 0.0),
+                (0.0, 0.0, -1.0)):
+        fwd = np.asarray(fwd)
+        if fwd[2] == 1.0:
+            pose = np.eye(4, dtype=np.float32)
+            pose[:3, 3] = center - 1.2 * sizes[2] * fwd
+        else:
+            pose = look_along(fwd, center - 1.2 * sizes[0] * fwd)
+        poses.append(pose)
+    return [render.PinholeCamera.create(p, IMG_W, IMG_H, focal=520.0,
+                                        device="cuda") for p in poses]
+
+
+def check_grazer_contract(base, got, resolution, flip_band, depth_tol,
+                          what):
+    """A skip or relaxed render against the plain early-exit render of the
+    same frame, tests/test_fast_render.py's contracts (mip: hits equal,
+    depths within 2 voxels; relax: flips within ``om * 0.2`` voxels of the
+    threshold, depths within 2 thresholds): hit flips only where the
+    hitting render's final query lies within ``flip_band`` of the
+    threshold; common depths within ``depth_tol``. Excepted from the depth
+    test, as in check_cone_equiv, are tangent grazers (either render's
+    final query within GRAZER_BAND of the threshold), at most
+    MAX_HIT_FLIPS of the pixels: another sample sequence may stop in
+    another point of their sub-threshold sliver or miss it. The JAX
+    package's mip and relaxed renders of this sphere do the same, on the
+    same pixels as the port at 64^3 and 128^3
+    (tests/test_torch_render_mip.py). Returns (hits lost, hits gained,
+    largest common depth difference held, grazers past it, their largest
+    difference)."""
+    thresh = 0.25 * resolution
+    flips = base.hit != got.hit
+    hitter = torch.where(base.hit, base.distance, got.distance)
+    bad = flips & ~((hitter - thresh).abs() <= flip_band)
+    if bool(bad.any()):
+        raise AssertionError(f"{what}: {int(bad.sum())} hit flips outside "
+                             "the grazer band")
+    m = base.hit & got.hit
+    band = GRAZER_BAND * resolution
+    graze = ((base.distance - thresh).abs() <= band) \
+        | ((got.distance - thresh).abs() <= band)
+    diff = (base.depth - got.depth).abs()
+    past = m & (diff > depth_tol + 1e-6)
+    if bool((past & ~graze).any()):
+        raise AssertionError(f"{what}: depth differs by "
+                             f"{float(diff[past & ~graze].max())} m")
+    if float((past | flips).float().mean()) > MAX_HIT_FLIPS:
+        raise AssertionError(f"{what}: {int(flips.sum())} flips and "
+                             f"{int(past.sum())} grazers past the depth test")
+    err = float(diff[m & ~past].max())
+    past_err = float(diff[past].max()) if bool(past.any()) else 0.0
+    return (int((base.hit & ~got.hit).sum()), int((got.hit & ~base.hit).sum()),
+            err, int(past.sum()), past_err)
+
+
+def _bitwise(a, b):
+    """Equal bits, NaNs included (as int32 views of float32 tensors)."""
+    a, b = a.contiguous(), b.contiguous()
+    if a.dtype == torch.float64:
+        return torch.equal(a.view(torch.int64), b.view(torch.int64))
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def queries_mip(steps, sdf, table, camera):
+    from voxelized_geometry_tools_tpu_torch.ops import render
+
+    half = 0.5 * sdf.resolution
+    d = sdf.distances
+    corrected = torch.where(d >= 0.0, d - half, d + half)
+    with torch.no_grad():
+        base, base_stats = render.render_depth(
+            sdf, camera, num_steps=NUM_STEPS, corner_table=table,
+            early_exit=True, with_stats=True)
+    for f in MIP_FACTORS:
+        mip = _step(steps, f"build_sdf_mip factor {f}",
+                    lambda: render.build_sdf_mip(sdf, f))
+        n = GRID_N // f
+        vals = mip.values.reshape(n, 1, n, 1, n, 1)
+        ok = bool((vals <= corrected.reshape(n, f, n, f, n, f)).all())
+        if mip.coarse_counts != (n,) * 3 or not ok:
+            raise AssertionError(f"mip factor {f}: an entry exceeds a "
+                                 "corrected distance of its block")
+        with torch.no_grad():
+            res, stats = _step(
+                steps, f"render mip factor {f}",
+                lambda: render.render_depth(
+                    sdf, camera, num_steps=NUM_STEPS, corner_table=table,
+                    early_exit=True, mip=mip, with_stats=True))
+        lost, gained, err, n_past, past_err = check_grazer_contract(
+            base, res, sdf.resolution, GRAZER_BAND * sdf.resolution,
+            2 * sdf.resolution, f"mip factor {f}")
+        log(f"mip factor {f} ({n}^3 blocks): every entry <= every corrected "
+            f"distance of its block; render against the plain early-exit "
+            f"render: {lost} tangent-grazer hits lost, {gained} gained, max "
+            f"common depth diff {err:.3e} m ({n_past} grazers past 2 voxels,"
+            f" max {past_err:.3e} m); gather rows "
+            f"{render.gather_rows_from_stats(stats):.0f} (plain "
+            f"{render.gather_rows_from_stats(base_stats):.0f})")
+    del corrected
+
+
+def queries_relax(steps, sdf, table, camera):
+    from voxelized_geometry_tools_tpu_torch.ops import render
+
+    early = dict(num_steps=NUM_STEPS, corner_table=table, early_exit=True)
+    sched = dict(num_steps=NUM_STEPS, corner_table=table, **SCHEDULE)
+    cases = [(om, early) for om in RELAX_FACTORS] + [(RELAX_SCHEDULE, sched)]
+    bases = {}
+    for om, kw in cases:
+        key = id(kw)
+        with torch.no_grad():
+            if key not in bases:
+                bases[key] = _step(
+                    steps, f"render relax=1 ({'schedule' if kw is sched else 'early exit'})",
+                    lambda: render.render_depth(sdf, camera, with_stats=True,
+                                                **kw))
+            base, base_stats = bases[key]
+            res, stats = _step(
+                steps, f"render relax={om}",
+                lambda: render.render_depth(sdf, camera, relax=om,
+                                            with_stats=True, **kw))
+        lost, gained, err, n_past, past_err = check_grazer_contract(
+            base, res, sdf.resolution, om * 0.2 * sdf.resolution,
+            0.5 * sdf.resolution, f"relax={om}")
+
+        def iters(st):
+            return (int(st["fine_head_iters"]),
+                    int(_total_iters(st.get("fine_tail_iters"))))
+
+        log(f"relax={om} ({'shipped schedule' if kw is sched else 'early exit'}"
+            f"): {lost} grazer hits lost, {gained} gained, max common depth "
+            f"diff {err:.3e} m ({n_past} grazers past 2 thresholds, max "
+            f"{past_err:.3e} m); "
+            f"gather rows {render.gather_rows_from_stats(stats):.0f} "
+            f"(relax=1: {render.gather_rows_from_stats(base_stats):.0f}); "
+            f"head / tail iterations {iters(stats)} (relax=1: "
+            f"{iters(base_stats)})")
+
+
+def _total_iters(x):
+    return 0 if x is None else int(torch.as_tensor(x).sum())
+
+
+def queries_batch(steps, sdf, table, spec):
+    from voxelized_geometry_tools_tpu_torch.ops import render
+
+    cams = batch_views(spec)
+    rig = render.PinholeCamera.stack(cams)
+    with torch.no_grad():
+        batch = _step(steps, f"render_depth_batch of {len(cams)} views",
+                      lambda: render.render_depth_batch(
+                          sdf, rig, num_steps=NUM_STEPS, corner_table=table,
+                          **BATCH))
+        single_ms = []
+        for i, cam in enumerate(cams):
+            t0 = time.monotonic()
+            single = render.render_depth(sdf, cam, num_steps=NUM_STEPS,
+                                         corner_table=table, **BATCH_SINGLE)
+            torch.cuda.synchronize()
+            single_ms.append((time.monotonic() - t0) * 1e3)
+            if not (_bitwise(batch.depth[i], single.depth)
+                    and torch.equal(batch.hit[i], single.hit)):
+                raise AssertionError(f"batch view {i} differs from its own "
+                                     "render_depth")
+    hits = [round(float(h.float().mean()), 6) for h in batch.hit]
+    if not all(0.0 < h < 1.0 for h in hits):
+        raise AssertionError(f"batch hit fractions {hits}")
+    log(f"render_depth_batch {len(cams)} x {IMG_W}x{IMG_H}: each view's "
+        f"depth and hit bitwise equal to its own render_depth; hit fractions "
+        f"{hits}; per-view renders {[round(t, 1) for t in single_ms]} ms "
+        f"({sum(single_ms):.1f} ms together)")
+    return cams, batch
+
+
+def queries_clouds(steps, sdf, table, spec, cams, batch):
+    from voxelized_geometry_tools_tpu_torch.core import transforms
+    from voxelized_geometry_tools_tpu_torch.models.online_mapper import (
+        OnlineMapper)
+    from voxelized_geometry_tools_tpu_torch.ops import (
+        render, sdf_query, voxelize)
+
+    thresh = 0.25 * sdf.resolution
+    clouds = []
+    worst, graze_pts, n_pts = -float("inf"), 0, 0
+    for i, cam in enumerate(cams):
+        view = render.RenderResult(*(x[i] for x in batch))
+        cloud = render.depth_to_pointcloud(view, cam)
+        hit = view.hit.reshape(-1)
+        world = transforms.apply_isometry(cam.pose, cloud.points[hit])
+        q = sdf_query.estimate_location_distance(sdf, world)
+        # The Newton refine moves a hit along its ray by its final sample:
+        # at a tangent grazer (final sample within GRAZER_BAND of the
+        # threshold) that leaves the point up to the hit test's 2
+        # thresholds from the surface; every other hit point is within one.
+        final = view.distance.reshape(-1)[hit]
+        graze = (final - thresh).abs() <= GRAZER_BAND * sdf.resolution
+        over = q.value > thresh
+        if not bool(q.valid.all()) or bool((over & ~graze).any()) or not bool(
+                (q.value.abs() <= 2 * thresh).all()):
+            raise AssertionError(f"view {i}: a hit point's distance exceeds "
+                                 f"{thresh} m (or a grazer's {2 * thresh} m)")
+        if not bool(torch.isnan(cloud.points[~hit]).all()):
+            raise AssertionError(f"view {i}: a missed ray's point is finite")
+        worst = max(worst, float(q.value.abs().max()))
+        graze_pts += int(over.sum())
+        n_pts += int(hit.sum())
+        clouds.append(cloud)
+    log(f"depth_to_pointcloud: {n_pts} hit points, each within {thresh} m of "
+        f"the surface but {graze_pts} tangent grazers within {2 * thresh} m "
+        f"(largest |distance| {worst:.3e} m)")
+    reset_launches()
+    mapper = OnlineMapper(spec, frame="world", device="cuda")
+    _step(steps, f"integrate_frames of {len(clouds)} rendered clouds",
+          lambda: mapper.integrate_frames(clouds))
+    counts = read_launches()
+    if counts["carve_tiled"] != len(clouds) or sum(counts.values()) != len(
+            clouds):
+        raise AssertionError(f"integrate_frames launches {counts}")
+    eye = mapper.occupancy_map.origin_transform
+    tiled = voxelize.raycast_pointcloud(spec, eye, clouds[0])
+    plain = voxelize.raycast_pointcloud(spec, eye, clouds[0],
+                                        backend="plain")
+    if not grids_equal(tiled, plain):
+        raise AssertionError("the tiled carve of the first rendered cloud "
+                             "differs from the plain walk")
+    del tiled, plain
+    reset_launches()
+    with torch.no_grad():
+        resdf = _step(steps, "re-carved mapper sdf()", mapper.sdf)
+    counts = read_launches()
+    if counts["edt_bestfirst_staged"] != 2 or sum(counts.values()) != 2:
+        raise AssertionError(f"the re-carved SDF's launches {counts}")
+    occ = mapper.occupancy_map.occupancy
+    filled = occ > 0.5
+    near = float((sdf.distances[filled].abs() <= 2 * sdf.resolution)
+                 .float().mean())
+    if not int(filled.sum()) or not near > 0.5:
+        raise AssertionError(f"re-carved filled voxels: {int(filled.sum())},"
+                             f" share near the surface {near}")
+    log(f"re-carve: {int(filled.sum())} filled voxels, share within 2 voxels "
+        f"of the sphere's surface {near:.6f}; carve_tiled of the first "
+        f"cloud bitwise equal to the plain walk; sdf() finite "
+        f"{bool(torch.isfinite(resdf.distances).all())}")
+    del mapper, resdf, occ, filled
+    with torch.no_grad():
+        img = _step(steps, "render_occupancy_image (one view)",
+                    lambda: render.render_occupancy_image(
+                        sdf, cams[0], num_steps=NUM_STEPS,
+                        corner_table=table))
+    if not (0.0 < float(img.mean()) < 1.0) or not bool(
+            torch.isfinite(img).all()):
+        raise AssertionError("render_occupancy_image")
+    log(f"render_occupancy_image: mean {float(img.mean()):.6f}")
+
+
+def shell_points(count, gen):
+    """Points in the shell up to SHELL_VOXELS voxels inside the sphere."""
+    c = GRID_N / 2.0 * RESOLUTION
+    r_out = GRID_N / 4.0 * RESOLUTION
+    dirs = torch.randn((count, 3), generator=gen, device="cuda")
+    dirs = dirs / dirs.norm(dim=-1, keepdim=True)
+    r = r_out - SHELL_VOXELS * RESOLUTION * torch.rand(
+        (count,), generator=gen, device="cuda")
+    return c + dirs * r[:, None]
+
+
+def queries_points(steps, sdf):
+    from voxelized_geometry_tools_tpu_torch.ops import sdf_query
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    sizes = torch.tensor(sdf.spec.grid_sizes, device="cuda")
+    pts = (-0.05 + 1.1 * torch.rand((QUERY_POINTS, 3), generator=gen,
+                                    device="cuda")) * sizes
+    idx = torch.randint(-2, GRID_N + 2, (QUERY_POINTS, 3), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    inside = shell_points(QUERY_POINTS, gen)
+    calls = {
+        "estimate_index_distance":
+            lambda s, p, i, q: sdf_query.estimate_index_distance(s, i),
+        "coarse gradient":
+            lambda s, p, i, q: sdf_query.get_location_coarse_gradient(s, p),
+        "coarse gradient, edges":
+            lambda s, p, i, q: sdf_query.get_location_coarse_gradient(
+                s, p, enable_edge_gradients=True),
+        "fine gradient, 1 voxel":
+            lambda s, p, i, q: sdf_query.get_location_fine_gradient(
+                s, p, RESOLUTION),
+        "project_out_of_collision":
+            lambda s, p, i, q: sdf_query.project_out_of_collision(s, q),
+    }
+    with torch.no_grad():
+        out = {name: _step(steps, f"{name}, {QUERY_POINTS} points",
+                           lambda fn=fn: fn(sdf, pts, idx, inside))
+               for name, fn in calls.items()}
+    proj = out["project_out_of_collision"]
+    d = sdf_query.estimate_location_distance(sdf, proj.position[proj.valid])
+    if not bool((d.value > 0.0).all()) or not float(
+            proj.valid.float().mean()) > 0.99:
+        raise AssertionError("a valid projected point is not out of "
+                             "collision, or under 99 % are valid")
+    cpu = sdf.replace(distances=sdf.distances.cpu(),
+                      origin_transform=sdf.origin_transform.cpu(),
+                      minimum=sdf.minimum.cpu(), maximum=sdf.maximum.cpu())
+    m = CPU_QUERY_POINTS
+    report = []
+    for name, fn in calls.items():
+        ref = fn(cpu, pts[:m].cpu(), idx[:m].cpu(), inside[:m].cpu())
+        got = tuple(x[:m].cpu() for x in out[name])
+        if not torch.equal(got[1], ref[1]):
+            raise AssertionError(f"{name}: valid differs from the CPU's")
+        both = ref[1]
+        diff = (got[0][both] - ref[0][both]).abs()
+        err = float(diff.max()) if diff.numel() else 0.0
+        if name == "project_out_of_collision":
+            if err > PROJECTION_ATOL:
+                raise AssertionError(f"{name}: {err} m from the CPU's")
+        elif not (_bitwise(got[0][both], ref[0][both])
+                  and bool(torch.isnan(got[0][~both]).all())):
+            raise AssertionError(f"{name}: not bitwise equal to the CPU's")
+        report.append(f"{name} {err:.3e}")
+    log(f"queries, {QUERY_POINTS} points: valid projections "
+        f"{float(proj.valid.float().mean()):.6f}, every valid projected point "
+        f"at distance > 0; largest difference from the CPU on {m} points: "
+        f"{'; '.join(report)} (bitwise but the projection, held to "
+        f"{PROJECTION_ATOL})")
+
+
+def extrema_targets_ok(sdf, extrema):
+    """Every finite target is the centre of an effectively flat cell or of a
+    cell whose walk returns to it within CYCLE_WALK steps (a cycle)."""
+    from voxelized_geometry_tools_tpu_torch.ops import sdf_query
+
+    spec = sdf.spec
+    e = extrema.reshape(-1, 3)
+    finite = torch.isfinite(e).all(dim=-1)
+    cells = torch.unique(spec.flat_index(
+        spec.location_in_grid_frame_to_grid_index(e[finite]).long()))
+    idx = spec.unflatten_index(cells)
+    grad = sdf_query.get_index_coarse_gradient(sdf, idx, True)
+    flat = sdf_query._gradient_is_effectively_flat(grad.gradient,
+                                                   spec.resolution)
+    cur, back = idx, torch.zeros_like(flat)
+    for _ in range(CYCLE_WALK):
+        g = sdf_query.get_index_coarse_gradient(sdf, cur, True)
+        nxt = sdf_query._next_from_gradient(sdf, cur, g.gradient)
+        cur = torch.where(spec.check_grid_index_in_bounds(nxt)[..., None],
+                          nxt, cur)
+        back |= (cur == idx).all(dim=-1)
+    if not bool((flat | back).all()):
+        raise AssertionError("an extremum is neither flat nor on a cycle")
+    return int(cells.numel()), int(flat.sum()), int((back & ~flat).sum()), \
+        int((~finite).sum())
+
+
+def queries_extrema(steps, sdf):
+    from voxelized_geometry_tools_tpu_torch import GridSpec
+    from voxelized_geometry_tools_tpu_torch.ops import edt, sdf_query
+
+    spec = GridSpec.from_voxel_counts(RESOLUTION * GRID_N / EXTREMA_CPU_N,
+                                      (EXTREMA_CPU_N,) * 3)
+    small = edt.extract_signed_distance_field(
+        sphere_mask(EXTREMA_CPU_N, "cuda"), spec, None)
+    got = _step(steps, f"compute_local_extrema_map {EXTREMA_CPU_N}^3",
+                lambda: sdf_query.compute_local_extrema_map(small))
+    cpu = small.replace(distances=small.distances.cpu(),
+                        origin_transform=small.origin_transform.cpu())
+    t0 = time.monotonic()
+    ref = sdf_query.compute_local_extrema_map(cpu)
+    cpu_ms = (time.monotonic() - t0) * 1e3
+    if not _bitwise(got.cpu(), ref):
+        raise AssertionError(f"the {EXTREMA_CPU_N}^3 extrema map differs "
+                             "from the CPU's")
+    del small, got, ref
+    n = GRID_N ** 3
+    rounds = int(np.ceil(np.log2(n))) + 2
+    extrema = _step(steps, f"compute_local_extrema_map {GRID_N}^3 "
+                           f"({rounds} jump rounds)",
+                    lambda: sdf_query.compute_local_extrema_map(sdf))
+    if tuple(extrema.shape) != (GRID_N,) * 3 + (3,):
+        raise AssertionError(f"extrema shape {tuple(extrema.shape)}")
+    targets, flat, cycles, escapes = extrema_targets_ok(sdf, extrema)
+    log(f"extrema map: {EXTREMA_CPU_N}^3 bitwise equal to the CPU's (CPU "
+        f"{cpu_ms:.1f} ms); {GRID_N}^3: {escapes} cells leave the grid, "
+        f"{targets} distinct finite targets ({flat} flat cells, {cycles} "
+        f"cycle members), each checked")
+
+
+def queries_f64(steps, mask, sdf):
+    from voxelized_geometry_tools_tpu_torch.ops import edt, sdf_query
+
+    res = sdf.resolution
+    with torch.no_grad():
+        sdf64 = _step(steps, f"float64 EDT {GRID_N}^3",
+                      lambda: edt.extract_signed_distance_field(
+                          mask, sdf.spec, None, dtype=torch.float64))
+    d64 = sdf64.distances
+    if d64.dtype != torch.float64:
+        raise AssertionError(f"float64 SDF holds {d64.dtype}")
+    # Each field is its rounded sqrt times its own rounded resolution:
+    # divided by that, it squares to within 0.05 of its integer here (the
+    # largest is about 315^2).
+    sq64 = torch.round((d64 / res) ** 2)
+    sq32 = torch.round((sdf.distances.double() / float(np.float32(res))) ** 2)
+    if not torch.equal(sq64, sq32):
+        raise AssertionError("float64 and float32 SDFs' squared integer "
+                             "distances differ")
+    c = GRID_N // 2 - F64_CROP // 2
+    crop = (slice(c, c + F64_CROP),) * 3
+    d2 = sq64[crop].cpu()
+    neg = d64[crop].cpu() < 0
+    zero = torch.zeros_like(d2)
+    res64 = torch.tensor(res, dtype=torch.float64)
+    ref = (edt._sqrt(torch.where(neg, zero, d2), torch.float64) * res64
+           - edt._sqrt(torch.where(neg, d2, zero), torch.float64) * res64)
+    if not _bitwise(d64[crop].cpu().contiguous(), ref):
+        raise AssertionError("the float64 combine differs from the CPU's")
+    del sq64, sq32
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    sizes = torch.tensor(sdf.spec.grid_sizes, device="cuda")
+    pts = (-0.05 + 1.1 * torch.rand((QUERY_POINTS, 3), generator=gen,
+                                    device="cuda")) * sizes
+    idx = torch.randint(0, GRID_N, (QUERY_POINTS, 3), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    eps32 = float(np.finfo(np.float32).eps)
+    dmax = float(sdf.distances.abs().max())
+    with torch.no_grad():
+        q64 = _step(steps, f"float64 queries, {QUERY_POINTS} points",
+                    lambda: sdf_query.estimate_location_distance(sdf64, pts))
+        g64 = _step(steps, f"float64 coarse gradients, {QUERY_POINTS} points",
+                    lambda: sdf_query.get_location_coarse_gradient(
+                        sdf64, pts, True))
+        q32 = sdf_query.estimate_location_distance(sdf, pts)
+        # A point within float32 rounding of a cell face may take the
+        # neighbouring cell in one type: gradients are held cell by cell.
+        gi64 = sdf_query.get_index_coarse_gradient(sdf64, idx, True)
+        gi32 = sdf_query.get_index_coarse_gradient(sdf, idx, True)
+        moved = (sdf64.location_to_grid_index(pts)
+                 != sdf.location_to_grid_index(pts)).any(dim=-1)
+    if q64.value.dtype != torch.float64 or g64.gradient.dtype != torch.float64 \
+            or gi64.gradient.dtype != torch.float64:
+        raise AssertionError("float64 queries or gradients lost float64")
+    if not torch.equal(q64.valid, q32.valid) or not torch.equal(
+            gi64.valid, gi32.valid):
+        raise AssertionError("float64 validity differs from float32's")
+    qerr = float((q64.value - q32.value.double())[q64.valid].abs().max())
+    gerr = float((gi64.gradient - gi32.gradient.double())[gi64.valid]
+                 .abs().max())
+    qtol, gtol = 8 * eps32 * dmax, 8 * eps32 * dmax / res
+    if qerr > qtol or gerr > gtol:
+        raise AssertionError(f"float64 against float32: queries {qerr} "
+                             f"(limit {qtol}), gradients {gerr} (limit {gtol})")
+    log(f"float64 {GRID_N}^3: squared integer distances equal the float32 "
+        f"SDF's; combine bitwise equal to the CPU's on a {F64_CROP}^3 crop; "
+        f"{QUERY_POINTS} queries / gradients float64, within {qerr:.3e} / "
+        f"{gerr:.3e} of float32 (limits {qtol:.3e} / {gtol:.3e}; gradients "
+        f"at the same cells; {int(moved.sum())} of the points fall in "
+        f"another cell in float64)")
+
+
+def phase_queries():
+    """The SDF's other consumers at full width on bench.py's 512^3 sphere
+    (its SDF from the staged EDT kernel, the 4 GiB corner table, bench.py's
+    640x480 camera, 64 steps): the mip at factors 8 and 4 (the lower-bound
+    property on the whole grid; mip renders hit as the plain early-exit
+    render, depths within 2 voxels); relaxed renders at 1.3, 1.9 and 1.6 on
+    the shipped schedule (tests/test_fast_render.py's relax contract, with
+    their counters beside relax=1's); render_depth_batch of four views,
+    each bitwise equal to its own render_depth; the views back to clouds
+    (hit points within the threshold), integrated into a fresh 512^3
+    OnlineMapper (tiled carve bitwise against the plain walk, its SDF
+    through the EDT kernel), render_occupancy_image; 10^6-point index
+    queries, coarse and fine gradients and projections out of the 4-voxel
+    shell (10^4 against the CPU: bitwise, the projection within
+    PROJECTION_ATOL); the extrema map at 128^3 (bitwise against the CPU)
+    and 512^3 (every finite target checked); the float64 SDF. Logs each
+    step's wall time and peak device memory."""
+    from voxelized_geometry_tools_tpu_torch import GridSpec
+    from voxelized_geometry_tools_tpu_torch.ops import edt, render, sdf_query
+
+    t_phase = time.monotonic()
+    steps = []
+    spec = GridSpec.from_voxel_counts(RESOLUTION, (GRID_N,) * 3)
+    mask = sphere_mask(GRID_N, "cuda")
+    reset_launches()
+    with torch.no_grad():
+        sdf = _step(steps, f"EDT {GRID_N}^3", lambda: (
+            edt.extract_signed_distance_field(mask, spec, None,
+                                              frame="bench")))
+    counts = read_launches()
+    if counts["edt_bestfirst_staged"] != 2 or sum(counts.values()) != 2:
+        raise AssertionError(f"the queries' SDF launches: {counts}")
+    with torch.no_grad():
+        table = _step(steps, "corner table",
+                      lambda: sdf_query.build_corner_table(sdf))
+    camera = batch_views(spec)[0]
+    queries_mip(steps, sdf, table, camera)
+    queries_relax(steps, sdf, table, camera)
+    cams, batch = queries_batch(steps, sdf, table, spec)
+    queries_clouds(steps, sdf, table, spec, cams, batch)
+    del table, batch
+    queries_points(steps, sdf)
+    queries_extrema(steps, sdf)
+    queries_f64(steps, mask, sdf)
+    total = time.monotonic() - t_phase
+    log(f"phase_queries: {total:.1f} s; steps (ms, peak GiB): "
+        + "; ".join(f"{n} {ms:.1f} {p / 2 ** 30:.3f}" for n, ms, p in steps))
+
+
 def main():
     name = phase_device()
     phase_build()
@@ -2258,6 +2824,7 @@ def main():
     phase_fits()
     log(f"rotated carve, mapper and fits phases: "
         f"{time.monotonic() - t_slice:.1f} s")
+    phase_queries()
     plain_512 = t_edt["plain_y"] + t_edt["plain_z"]
     kernels = []
     for kname, (source, replaces) in KERNELS.items():

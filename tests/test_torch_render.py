@@ -182,15 +182,41 @@ def test_render_gradients_match_jax(scene, table):
 
 @pytest.mark.parametrize("kwargs", [
     dict(mip=object()),
-    dict(early_exit=True, coarse_factor=4, head_steps=0, tail_chunks=4,
-         relax=2.0),
+    dict(coarse_factor=4, head_steps=0, tail_chunks=4, relax=2.0),
     dict(early_exit=True, tail_chunks=1, relax=1.5),
 ])
 def test_unported_options_raise(scene, kwargs):
-    _, ts, _, _ = scene
-    _, tc = _cameras(ts, 8, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.render_depth(ts, tc, num_steps=4, **kwargs)
+    """The options that once raised as unported are ported: a mip that is
+    not an ``SdfMip`` fails as in the JAX package, ``relax > 1`` without
+    early exit raises the JAX package's ``ValueError``, and a relaxed
+    early-exit render is within check_render_contract of the JAX
+    package's, and within tests/test_fast_render.py's relax contract of
+    the fixed march (flips only in the grazer band widened by ``relax``,
+    common depths within two thresholds)."""
+    js, ts, _, _ = scene
+    if "mip" in kwargs:
+        _, tc = _cameras(ts, 8, 8)
+        with pytest.raises((TypeError, AttributeError)):
+            tr.render_depth(ts, tc, num_steps=4, **kwargs)
+    elif not kwargs.get("early_exit"):
+        _, tc = _cameras(ts, 8, 8)
+        with pytest.raises(ValueError, match="early_exit"):
+            tr.render_depth(ts, tc, num_steps=4, **kwargs)
+    else:
+        jc, tc = _cameras(js)
+        got = tr.render_depth(ts, tc, num_steps=64, **kwargs)
+        _check_vs_jax(jr.render_depth(js, jc, num_steps=64, **kwargs), got,
+                      js.resolution)
+        fixed = tr.render_depth(ts, tc, num_steps=64)
+        thresh = 0.25 * ts.resolution
+        flips = (fixed.hit != got.hit).numpy()
+        dist = torch.where(fixed.hit, fixed.distance, got.distance).numpy()
+        band = kwargs["relax"] * 0.2 * ts.resolution
+        assert not (flips & ~(np.abs(dist - thresh) <= band)).any()
+        m = fixed.hit & got.hit
+        assert bool(m.any())
+        assert float((fixed.depth[m] - got.depth[m]).abs().max()) \
+            <= 2 * thresh + 1e-6
 
 
 def test_relax_below_one_rejected(scene):

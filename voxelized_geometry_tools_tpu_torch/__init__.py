@@ -20,13 +20,24 @@ native C++ runtime in ``native/``) and the pipeline carve -> fuse -> EDT ->
 render (``models/fusion_pipeline.reconstruct``), the z-pair corner table,
 the pose and voxel fits (``models/fusion_pipeline``, with ``remat``) and
 the online mapper (``models/online_mapper.OnlineMapper``). Transform
-products take the JAX package's bits (``core/transforms.matmul``).
+products take the JAX package's bits (``core/transforms.matmul``, float32
+and float64). Then the SDF's other consumers: the mip skip, over-relaxed
+and batched renders, ``render_occupancy_image`` and
+``depth_to_pointcloud`` (``ops/render.py``); coarse and fine gradients,
+the projections out of collision and the local-extrema map
+(``ops/sdf_query.py``); the four occupancy map classes with cell access
+(``core/maps.py``); float64 fields through the EDT, the maps and every
+query.
 """
 
 from .core.grid import GridSpec
-from .core.maps import FREE, UNKNOWN, FILLED, OccupancyMap, SignedDistanceField
+from .core.maps import (
+    FREE, UNKNOWN, FILLED, OccupancyComponentMap, OccupancyMap,
+    SignedDistanceField, TaggedObjectOccupancyComponentMap,
+    TaggedObjectOccupancyMap)
 
 __all__ = [
     "GridSpec", "FREE", "UNKNOWN", "FILLED", "OccupancyMap",
-    "SignedDistanceField",
+    "OccupancyComponentMap", "TaggedObjectOccupancyMap",
+    "TaggedObjectOccupancyComponentMap", "SignedDistanceField",
 ]

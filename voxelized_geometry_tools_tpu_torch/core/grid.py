@@ -20,6 +20,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from . import transforms
 from .constants import constant
 
 Tensor = torch.Tensor
@@ -142,6 +143,21 @@ class GridSpec:
         """Row-major (x-major, z-fastest) flat index of [..., 3]."""
         ny, nz = self.counts[1], self.counts[2]
         return index[..., 0] * (ny * nz) + index[..., 1] * nz + index[..., 2]
+
+    def unflatten_index(self, flat: Tensor) -> Tensor:
+        """Inverse of :meth:`flat_index`: ``[..., 3]`` int32 indices."""
+        ny, nz = self.counts[1], self.counts[2]
+        x = torch.div(flat, ny * nz, rounding_mode="floor")
+        rem = flat - x * (ny * nz)
+        y = torch.div(rem, nz, rounding_mode="floor")
+        return torch.stack([x, y, rem - y * nz], dim=-1).to(torch.int32)
+
+
+def grid_index_to_location(spec: GridSpec, origin_transform: Tensor,
+                           index: Tensor) -> Tensor:
+    """Integer grid index ``[..., 3]`` -> world cell-center location."""
+    p_grid = spec.grid_index_to_location_in_grid_frame(index)
+    return transforms.apply_isometry(origin_transform, p_grid)
 
 
 def get_index_values(data: Tensor, index: Tensor, oob_value) -> Tensor:

@@ -5,15 +5,22 @@ main path uses). An isometry is a plain row-major ``[4, 4]`` tensor; every
 helper keeps the dtype and device of its input.
 
 The JAX package forms its transform products (``compose``, the inverse's
-``-R^T t``) as XLA dots, and XLA's CPU dot computes each element as a
-fused multiply-add chain in ``k`` order, ``fma(a3, b3, fma(a2, b2, fma(a1,
-b1, a0 b0)))``, jitted or op by op. :func:`matmul` reproduces that chain
-bit for bit in float32 from exact IEEE float64 operations (see
-:func:`_fma_chain`), whatever the device, so grid-frame transforms, and
-every carve and query built on them, get the JAX package's bits.
+``-R^T t``) as XLA dots. In float32, XLA's CPU dot computes each element
+as a fused multiply-add chain in ``k`` order, ``fma(a3, b3, fma(a2, b2,
+fma(a1, b1, a0 b0)))``, jitted or op by op. In float64 (checked against
+exact ``fractions.Fraction`` chains on random products) it is that chain
+where ``K <= 3`` (the inverse's ``-R^T t``, 3x3 products), but a 4x4
+product such as ``compose`` rounds each product and sums them in ``k``
+order; a float64 ``K = 4`` product with an odd column count (a 4x4 matrix
+times a vector) is neither, and is not formed by the port. :func:`matmul`
+reproduces each of these bit for bit, whatever the device (see
+:func:`_fma_chain` and :func:`_fma_chain_f64`), so grid-frame transforms,
+and every carve and query built on them, get the JAX package's bits.
 """
 
 from __future__ import annotations
+
+from fractions import Fraction
 
 import numpy as np
 import torch
@@ -63,14 +70,45 @@ def _fma_chain(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return out
 
 
+def _fma_chain_f64(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """``a @ b`` of float64 ``[m, K] @ [K, n]`` arrays as an FMA chain in
+    ``k`` order: each step is formed exactly as a ``Fraction`` and rounded
+    once (``int / int`` is correctly rounded in Python). Elements with a
+    non-finite operand take the rounded chain, which gives the same
+    infinities and NaNs."""
+    with np.errstate(all="ignore"):
+        out = a[:, :1] * b[:1, :]
+    for i in range(a.shape[0]):
+        for j in range(b.shape[1]):
+            col = b[:, j]
+            if not (np.isfinite(a[i]).all() and np.isfinite(col).all()):
+                acc = out[i, j]
+                with np.errstate(all="ignore"):
+                    for k in range(1, a.shape[1]):
+                        acc = acc + a[i, k] * col[k]
+                out[i, j] = acc
+                continue
+            acc = float(out[i, j])
+            for k in range(1, a.shape[1]):
+                acc = float(Fraction(float(a[i, k])) * Fraction(float(col[k]))
+                            + Fraction(acc))
+            out[i, j] = acc
+    return out
+
+
 def _product(a: Tensor, b: Tensor) -> Tensor:
-    """``a @ b`` for ``[m, K] @ [K, n]``: in float32 the FMA chain of
-    :func:`_fma_chain`, formed on the host (a 4x4 chain is some 140
-    elementwise operations, each a kernel launch on a card, about 3 ms of
-    host time; the copy to the host waits for the card once); in other
-    dtypes the products rounded, then summed in ``k`` order."""
+    """``a @ b`` for ``[m, K] @ [K, n]``, formed on the host (a 4x4 chain
+    is some 140 elementwise operations, each a kernel launch on a card,
+    about 3 ms of host time; the copy to the host waits for the card once):
+    in float32 the FMA chain of :func:`_fma_chain`; in float64 with
+    ``K <= 3`` the FMA chain of :func:`_fma_chain_f64`. Otherwise the
+    products are rounded, then summed in ``k`` order."""
     if a.dtype == b.dtype == torch.float32:
         out = _fma_chain(a.detach().cpu().numpy(), b.detach().cpu().numpy())
+        return torch.from_numpy(out).to(a.device)
+    if a.dtype == b.dtype == torch.float64 and a.shape[1] <= 3:
+        out = _fma_chain_f64(a.detach().cpu().numpy(),
+                             b.detach().cpu().numpy())
         return torch.from_numpy(out).to(a.device)
     out = a[:, :1] * b[:1, :]
     for k in range(1, a.shape[1]):
@@ -97,9 +135,10 @@ class _Matmul(torch.autograd.Function):
 
 def matmul(a: Tensor, b: Tensor) -> Tensor:
     """``a @ b`` of two matrices (or a matrix and a vector) with the JAX
-    package's bits on the CPU: in float32, each element is the fused
-    multiply-add chain of XLA's dot (exact on every device).
-    Differentiable."""
+    package's bits on the CPU, exact on every device: in float32, and in
+    float64 up to ``K = 3``, each element is the fused multiply-add chain
+    of XLA's dot; a float64 4x4 product sums rounded products in ``k``
+    order, as XLA's does. Differentiable."""
     if b.dim() == 1:
         return _Matmul.apply(a, b[:, None])[:, 0]
     return _Matmul.apply(a, b)
@@ -124,7 +163,9 @@ def rotate_vector(m: Tensor, vectors: Tensor) -> Tensor:
 
     Written elementwise, in the same operation order as the JAX package, so
     that the two agree bit for bit on the CPU (a matmul would sum in another
-    order)."""
+    order). Mixed dtypes are promoted first, as JAX promotes them."""
+    dt = torch.promote_types(m.dtype, vectors.dtype)
+    m, vectors = m.to(dt), vectors.to(dt)
     x, y, z = vectors[..., 0], vectors[..., 1], vectors[..., 2]
     return torch.stack([
         x * m[0, 0] + y * m[0, 1] + z * m[0, 2],

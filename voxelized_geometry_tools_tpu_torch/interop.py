@@ -12,9 +12,11 @@ import torch
 
 from .core.device import default_device
 from .core.grid import GridSpec
-from .core.maps import OccupancyMap, SignedDistanceField
+from .core.maps import (
+    OccupancyComponentMap, OccupancyMap, SignedDistanceField,
+    TaggedObjectOccupancyComponentMap, TaggedObjectOccupancyMap)
 from .models.online_mapper import OnlineMapper
-from .ops.render import PinholeCamera
+from .ops.render import PinholeCamera, SdfMip
 from .ops.sdf_query import CornerPairTable, CornerTable
 from .ops.voxelize import FilterOptions, PointCloud
 
@@ -129,3 +131,90 @@ def online_mapper_from_numpy(spec: GridSpec, origin_transform: np.ndarray,
                                    device=mapper.occupancy_map.occupancy.device)
     mapper._set_occupancy(occ.occupancy, int(frames_integrated))
     return mapper
+
+
+def sdf_mip_from_numpy(values: np.ndarray, coarse_counts: Sequence[int],
+                       factor: int, block_size: float,
+                       device=None) -> SdfMip:
+    """An ``SdfMip`` from a JAX ``SdfMip``'s values and static fields, on
+    ``device`` (None: the CUDA card)."""
+    vals = torch.tensor(np.asarray(values, np.float32),
+                        device=default_device(device)).reshape(-1)
+    counts = tuple(int(c) for c in coarse_counts)
+    if vals.numel() != int(np.prod(counts)):
+        raise ValueError(f"mip values hold {vals.numel()} blocks, "
+                         f"coarse_counts {counts}")
+    return SdfMip(values=vals, coarse_counts=counts, factor=int(factor),
+                  block_size=float(block_size))
+
+
+def _u32(x, dev) -> torch.Tensor:
+    """A uint32 channel or counter from numpy, through its int32 bits."""
+    return torch.from_numpy(np.array(x, np.uint32).view(np.int32)).to(
+        dev).view(torch.uint32)
+
+
+def _map_from_numpy(cls, spec: GridSpec, origin_transform, frame: str,
+                    device, channels: dict, counters: dict, flags: dict):
+    """A map of class ``cls``: its ``create``'s defaults, then the given
+    float32 occupancy, uint32 channels and counters, and cache flags."""
+    dev = default_device(device)
+    fields = {name: _u32(value, dev) for name, value in channels.items()
+              if name != "occupancy"}
+    fields["occupancy"] = torch.tensor(
+        np.asarray(channels["occupancy"], np.float32), device=dev)
+    for name, value in fields.items():
+        if tuple(value.shape) != tuple(spec.counts):
+            raise ValueError(f"{name} shape {tuple(value.shape)} != spec "
+                             f"counts {spec.counts}")
+    for name, value in counters.items():
+        fields[name] = _u32(value, dev).reshape(())
+    base = cls.create(spec, origin_transform, frame, device=dev)
+    return base.replace(**fields, **flags)
+
+
+def occupancy_component_map_from_numpy(
+        spec: GridSpec, occupancy: np.ndarray, component: np.ndarray,
+        number_of_components=0, origin_transform=None, frame: str = "",
+        components_valid: bool = False,
+        device=None) -> OccupancyComponentMap:
+    """An ``OccupancyComponentMap`` from a JAX one's arrays (float32
+    occupancy, uint32 labels and count) and flag, on ``device`` (None: the
+    CUDA card)."""
+    return _map_from_numpy(
+        OccupancyComponentMap, spec, origin_transform, frame, device,
+        {"occupancy": occupancy, "component": component},
+        {"number_of_components": number_of_components},
+        {"components_valid": bool(components_valid)})
+
+
+def tagged_object_occupancy_map_from_numpy(
+        spec: GridSpec, occupancy: np.ndarray, object_id: np.ndarray,
+        origin_transform=None, frame: str = "",
+        device=None) -> TaggedObjectOccupancyMap:
+    """A ``TaggedObjectOccupancyMap`` from a JAX one's arrays (float32
+    occupancy, uint32 object ids), on ``device`` (None: the CUDA card)."""
+    return _map_from_numpy(
+        TaggedObjectOccupancyMap, spec, origin_transform, frame, device,
+        {"occupancy": occupancy, "object_id": object_id}, {}, {})
+
+
+def tagged_object_occupancy_component_map_from_numpy(
+        spec: GridSpec, occupancy: np.ndarray, object_id: np.ndarray,
+        component: np.ndarray, spatial_segment: np.ndarray,
+        number_of_components=0, number_of_spatial_segments=0,
+        origin_transform=None, frame: str = "",
+        components_valid: bool = False,
+        spatial_segments_valid: bool = False,
+        device=None) -> TaggedObjectOccupancyComponentMap:
+    """A ``TaggedObjectOccupancyComponentMap`` from a JAX one's arrays,
+    counts and flags, on ``device`` (None: the CUDA card)."""
+    return _map_from_numpy(
+        TaggedObjectOccupancyComponentMap, spec, origin_transform, frame,
+        device,
+        {"occupancy": occupancy, "object_id": object_id,
+         "component": component, "spatial_segment": spatial_segment},
+        {"number_of_components": number_of_components,
+         "number_of_spatial_segments": number_of_spatial_segments},
+        {"components_valid": bool(components_valid),
+         "spatial_segments_valid": bool(spatial_segments_valid)})

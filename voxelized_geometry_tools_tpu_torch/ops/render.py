@@ -26,9 +26,13 @@ counters) follows the JAX package's order.
 Either table type (:class:`..ops.sdf_query.CornerTable` or
 ``CornerPairTable``) serves every schedule, and ``remat=True``
 rematerializes each fixed-march step in the backward pass
-(``torch.utils.checkpoint``). Rays that miss return ``hit=False`` with
-depth ``max_depth``. The mip skip, over-relaxation and the batched render
-are not ported yet and raise, naming their ROADMAP item.
+(``torch.utils.checkpoint``). The early-exit march also takes the
+:class:`SdfMip` empty-space skip and over-relaxation (``relax > 1``);
+:func:`render_depth_batch` marches several views of one camera rig in one
+block-sorted tail. Rays that miss return ``hit=False`` with depth
+``max_depth``. :func:`render_occupancy_image` and
+:func:`depth_to_pointcloud` turn a render into a soft silhouette and back
+into a sensor cloud.
 """
 
 from __future__ import annotations
@@ -45,16 +49,14 @@ from ..core.constants import constant
 from ..core.device import default_device
 from ..core.maps import SignedDistanceField
 from . import sdf_query
+from .edt import _sqrt
+from .voxelize import PointCloud
 
 Tensor = torch.Tensor
 
 # Sort key of dead rays: after every live one.
 _DEAD_KEY = 3e30
 _BIG = 1e30
-
-
-def _todo(option: str, item: str):
-    return NotImplementedError(f"{option} is not ported yet ({item})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,12 +101,61 @@ class PinholeCamera:
                              cx=scalar(cx), cy=scalar(cy),
                              width=int(width), height=int(height))
 
+    @staticmethod
+    def stack(cameras) -> "PinholeCamera":
+        """One camera of a rig of views with the same image size: each
+        tensor gains a leading view axis (``pose [B, 4, 4]``, ``fx [B]``),
+        the form :func:`render_depth_batch` takes."""
+        cameras = list(cameras)
+        if len({(c.width, c.height) for c in cameras}) != 1:
+            raise ValueError("stacked cameras must share one image size")
+        return PinholeCamera(
+            *(torch.stack([getattr(c, k) for c in cameras])
+              for k in ("pose", "fx", "fy", "cx", "cy")),
+            width=cameras[0].width, height=cameras[0].height)
+
+    def view(self, i: int) -> "PinholeCamera":
+        """View ``i`` of a stacked camera."""
+        return PinholeCamera(self.pose[i], self.fx[i], self.fy[i],
+                             self.cx[i], self.cy[i], self.width, self.height)
+
 
 class RenderResult(NamedTuple):
     depth: Tensor     # [H, W] ray depth (t along the unit ray direction)
     hit: Tensor       # [H, W] bool, surface hit within max_depth
     points: Tensor    # [H, W, 3] final world-space sample positions
     distance: Tensor  # [H, W] final SDF sample value
+
+
+class SdfMip(NamedTuple):
+    """Coarse lower-bound grid for empty-space skipping: ``values[b]``
+    lower-bounds the corrected distance anywhere in coarse block ``b``
+    (min-pool minus ``(sqrt(3)/2 + 1/2)`` voxels; the field is
+    1-Lipschitz), so one gather from it is a safe step."""
+    values: Tensor       # f32 [ncx * ncy * ncz] flattened coarse blocks
+    coarse_counts: Tuple[int, int, int]
+    factor: int
+    block_size: float    # factor * resolution (meters)
+
+
+def build_sdf_mip(sdf: SignedDistanceField, factor: int = 8) -> SdfMip:
+    """Min-pool the float32 distances into ``factor^3`` blocks (the grid
+    padded with ``+inf`` to a multiple) and subtract the half-cell
+    diagonal plus the half voxel of the corrected-center rule."""
+    nx, ny, nz = sdf.spec.counts
+    f = int(factor)
+    d = sdf.distances.to(torch.float32)
+    pad = ((-nz) % f, (-ny) % f, (-nx) % f)
+    if any(pad):
+        d = torch.nn.functional.pad(d, (0, pad[0], 0, pad[1], 0, pad[2]),
+                                    value=float("inf"))
+    cx, cy, cz = d.shape[0] // f, d.shape[1] // f, d.shape[2] // f
+    pooled = torch.amin(d.reshape(cx, f, cy, f, cz, f), dim=(1, 3, 5))
+    margin = _f32((0.5 * float(np.sqrt(3.0)) + 0.5) * sdf.spec.resolution,
+                  d.device)
+    return SdfMip(values=(pooled - margin).reshape(-1),
+                  coarse_counts=(cx, cy, cz), factor=f,
+                  block_size=f * sdf.spec.resolution)
 
 
 def _f32(x, device) -> Tensor:
@@ -124,12 +175,15 @@ def _norm3(v: Tensor) -> Tensor:
 
 
 def _unit_dirs(camera: PinholeCamera, u: Tensor, v: Tensor) -> Tensor:
-    """World directions of the pixels at columns ``u`` and rows ``v``."""
+    """World directions of the pixels at columns ``u`` and rows ``v``,
+    normalized as the JAX package normalizes them op by op: the squares
+    summed in axis order, a correctly rounded sqrt, a divide."""
     vv, uu = torch.meshgrid(v, u, indexing="ij")
     d = torch.stack([(uu - camera.cx) / camera.fx,
                      (vv - camera.cy) / camera.fy,
                      torch.ones_like(uu)], dim=-1)
-    d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+    x, y, z = d[..., 0], d[..., 1], d[..., 2]
+    d = d / _sqrt(x * x + y * y + z * z, d.dtype)[..., None]
     return transforms.rotate_vector(camera.pose, d)
 
 
@@ -230,23 +284,31 @@ def sphere_trace(sdf: SignedDistanceField, origins: Tensor, dirs: Tensor,
       :func:`gather_rows_from_stats`): iteration counts as int32 CPU
       tensors, static widths as ints.
 
+    * ``mip`` (an :class:`SdfMip`): before the march, every ray in the
+      grid jumps ahead by its block's lower bound, less the convergence
+      band, while that jump exceeds one block, for at most
+      ``coarse_steps`` jumps (one host sync each).
+    * ``relax > 1`` (early exit only): over-relaxed sphere tracing. Rays
+      whose sample decays at less than half the last advance step
+      ``relax`` times their sample; a relaxed step whose next sample
+      shows that the two step spheres do not overlap is reverted to the
+      classic step (an out-of-grid sample tests as 0 for that). Each
+      march phase (head, every tail chunk) starts with no step taken.
     * ``remat`` (fixed march): each step is rematerialized in the backward
       pass instead of keeping its gather indices and weights
       (``torch.utils.checkpoint``, non-reentrant); values and gradients
       are the same bits. The early-exit schedule ignores it, as the JAX
-      package's does.
-
-    Not ported yet, and raising: ``mip``, ``relax > 1``."""
+      package's does."""
     if surface_threshold is None:
         surface_threshold = 0.25 * sdf.resolution
     relax = float(relax)
     if relax < 1.0:
         raise ValueError(f"relax={relax} must be >= 1.0 "
                          "(use step_scale for under-relaxation)")
-    if mip is not None:
-        raise _todo("mip", "ROADMAP.md queue 1 item 5d, SdfMip")
-    if relax > 1.0:
-        raise _todo("relax > 1", "ROADMAP.md queue 1 item 5h")
+    if relax > 1.0 and not early_exit:
+        raise ValueError("relax > 1 requires early_exit=True (the revert "
+                         "logic lives in the early-exit march; the "
+                         "differentiable fixed march stays classic)")
 
     dev = origins.device
     thresh = _f32(surface_threshold, dev)
@@ -290,6 +352,10 @@ def sphere_trace(sdf: SignedDistanceField, origins: Tensor, dirs: Tensor,
             ti = torch.where(t_enter >= valid_from, ti, t0)
         t0 = torch.maximum(t0, ti)
 
+    if mip is not None:
+        t0 = _mip_skip(sdf, mip, origins, dirs, t0, t_stop, hits_grid,
+                       thresh, coarse_steps)
+
     def advance_ray(t, alive, o, d_ray, stop):
         q = sample(o + d_ray * t[..., None])
         d = torch.where(q.valid, q.value, thresh)  # nudge forward if outside
@@ -298,30 +364,77 @@ def sphere_trace(sdf: SignedDistanceField, origins: Tensor, dirs: Tensor,
         new_t = torch.where(alive & ~converged, t + advance, t)
         return new_t, alive & ~converged & (new_t < stop), d, converged
 
+    relax_f = _f32(relax, dev)
+    half = _f32(0.5, dev)
+    zero = _f32(0.0, dev)
+
+    def advance_relaxed(t, alive, o, d_ray, stop, d_cur, last_adv,
+                        was_relaxed):
+        """One over-relaxed step: ``(new_t, new_alive, d, converged,
+        overshoot, new_adv, new_relaxed)``."""
+        q = sample(o + d_ray * t[..., None])
+        # An out-of-grid sample proves nothing about the skipped segment:
+        # it tests as 0 (revert), not as the nudge value.
+        d_test = torch.where(q.valid, q.value, zero)
+        overshoot = alive & was_relaxed & (last_adv > d_cur + d_test)
+        d = torch.where(q.valid, q.value, thresh)
+        converged = q.valid & (d <= thresh) & ~overshoot
+        classic = torch.maximum(d * step_scale, eps)
+        classic_prev = torch.maximum(d_cur * step_scale, eps)
+        # Only tangential rays (sample decaying at less than half the
+        # march rate) take relaxed steps.
+        tangential = (d_cur - d) < half * last_adv
+        adv = torch.where(tangential,
+                          torch.maximum(d * step_scale * relax_f, eps),
+                          classic)
+        new_t = torch.where(
+            overshoot, t - last_adv + classic_prev,
+            torch.where(alive & ~converged, t + adv, t))
+        new_adv = torch.where(overshoot, classic_prev, adv)
+        # Exit on the classic step's guarantee: a relaxed step past
+        # ``stop`` proved nothing, and its out-of-grid sample reverts it.
+        escaped = ~overshoot & (t + classic >= stop)
+        new_alive = alive & ~converged & ~escaped
+        return (new_t, new_alive, d, converged, overshoot, new_adv,
+                tangential & ~overshoot)
+
     def march_while(t, alive, o, d_ray, stop, budget, d_cur=None,
                     conv=None):
         """Up to ``budget`` iterations while any ray is alive. Also carries
         each ray's last two samples (``d_prev``, ``d_cur``) and whether it
-        converged, and counts the iterations that had a live ray."""
+        converged, and counts the iterations that had a live ray. With
+        ``relax > 1`` each call starts with no step taken."""
         d_prev = torch.full_like(t, _BIG)
         if d_cur is None:
             d_cur = d_prev
         if conv is None:
             conv = torch.zeros_like(alive)
+        if relax > 1.0:
+            last_adv = torch.zeros_like(t)
+            was_relaxed = torch.zeros_like(alive)
         iters = 0
         for _ in range(budget):
             if not bool(alive.any()):
                 break
             iters += 1
-            new_t, new_alive, d, converged = advance_ray(t, alive, o, d_ray,
-                                                         stop)
-            d_prev = torch.where(alive, d_cur, d_prev)
-            d_cur = torch.where(alive, d, d_cur)
+            if relax > 1.0:
+                (new_t, new_alive, d, converged, overshoot, last_adv,
+                 was_relaxed) = advance_relaxed(t, alive, o, d_ray, stop,
+                                                d_cur, last_adv, was_relaxed)
+                kept = alive & ~overshoot
+            else:
+                new_t, new_alive, d, converged = advance_ray(
+                    t, alive, o, d_ray, stop)
+                kept = alive
+            d_prev = torch.where(kept, d_cur, d_prev)
+            d_cur = torch.where(kept, d, d_cur)
             conv = conv | (alive & converged)
             t, alive = new_t, new_alive
         return t, alive, d_prev, d_cur, conv, iters
 
-    alive0 = hits_grid if killed is None else hits_grid & ~killed
+    alive0 = hits_grid if mip is None else hits_grid & (t0 < t_stop)
+    if killed is not None:
+        alive0 = alive0 & ~killed
     stats = {}
     sparse = None  # (carried last samples, converged, sort block, chunks)
     if early_exit:
@@ -381,6 +494,37 @@ def sphere_trace(sdf: SignedDistanceField, origins: Tensor, dirs: Tensor,
     result = RenderResult(depth=depth, hit=hit, points=points,
                           distance=final_d)
     return (result, stats) if with_stats else result
+
+
+def _mip_skip(sdf: SignedDistanceField, mip: SdfMip, origins: Tensor,
+              dirs: Tensor, t0: Tensor, t_stop: Tensor, hits_grid: Tensor,
+              thresh: Tensor, coarse_steps: int) -> Tensor:
+    """Empty-space skip over ``mip``: each ray in the grid advances by its
+    coarse block's lower bound less the convergence band (``thresh`` plus
+    half a cell diagonal, which the bound does not cover) while that
+    advance exceeds one block, up to ``coarse_steps`` rounds."""
+    inv = sdf.inverse_origin_transform()
+    ncx, ncy, ncz = mip.coarse_counts
+    dev = origins.device
+    block = _f32(mip.block_size, dev)
+    band = thresh + _f32(0.5 * float(np.sqrt(3.0)) * sdf.resolution, dev)
+    hi = constant((ncx - 1, ncy - 1, ncz - 1), torch.int32, dev)
+    t, skipping = t0, hits_grid
+    for _ in range(int(coarse_steps)):
+        if not bool(skipping.any()):
+            break
+        p_grid = transforms.apply_isometry(inv, origins + dirs * t[..., None])
+        ci = torch.minimum(torch.clamp(
+            torch.floor(p_grid / block).to(torch.int32), min=0), hi)
+        flat = ci[..., 0] * (ncy * ncz) + ci[..., 1] * ncz + ci[..., 2]
+        bound = mip.values.index_select(0, flat.reshape(-1)).reshape(
+            flat.shape)
+        advance = bound - band
+        can_skip = advance > block
+        new_t = torch.where(skipping & can_skip, t + advance, t)
+        skipping = skipping & can_skip & (new_t < t_stop)
+        t = new_t
+    return t
 
 
 def _sorted_tail(march_while, batch_shape, t_final, alive, d_prev, d_cur,
@@ -907,3 +1051,81 @@ def render_depth(sdf: SignedDistanceField, camera: PinholeCamera,
         stats.update(trace_stats)
         return result, stats
     return result
+
+
+def render_depth_batch(sdf: SignedDistanceField, cameras: PinholeCamera,
+                       num_steps: int = 64, max_depth: float = 100.0,
+                       surface_threshold: Optional[float] = None,
+                       corner_table: Optional[sdf_query.Table] = None,
+                       coarse_factor: int = 8,
+                       cone_steps: Optional[int] = 32,
+                       cone_tail_chunks: int = 8,
+                       tail_chunks: int = 64,
+                       **trace_kwargs) -> RenderResult:
+    """Render ``B`` views in one march: ``cameras`` is a stacked camera
+    (:meth:`PinholeCamera.stack`: ``pose [B, 4, 4]``, ``fx [B]``, ...), and
+    the result holds ``[B, H, W]`` images. The cone prepass runs view by
+    view, then every fine ray of every view marches in one block-sorted
+    tail (``head_steps=0``), so each ray's samples, and with them each
+    view's depths and hits, are bitwise those of :func:`render_depth` on
+    the same schedule. Inference only (``early_exit``); ``coarse_factor``
+    must divide both image sizes."""
+    if not (coarse_factor and cameras.width % coarse_factor == 0
+            and cameras.height % coarse_factor == 0):
+        raise ValueError("render_depth_batch requires coarse_factor "
+                         "dividing the image dimensions")
+    f = int(coarse_factor)
+    h, w = cameras.height, cameras.width
+    thresh = (0.25 * sdf.resolution if surface_threshold is None
+              else float(surface_threshold))
+    views = [cameras.view(i) for i in range(cameras.pose.shape[0])]
+    rays = [camera_rays(v) for v in views]
+    origins = torch.stack([o for o, _ in rays])  # [B, H, W, 3]
+    dirs = torch.stack([d for _, d in rays])
+    cones = [_cone_prepass(sdf, v, f, num_steps, thresh, max_depth,
+                           corner_table, max_cone_steps=cone_steps,
+                           cone_tail_chunks=cone_tail_chunks)
+             for v in views]
+    t_init, t_valid_from, sort_key, cert_miss = (
+        torch.stack(images).detach() for images in zip(*cones))
+    to_blocks, from_blocks = block_relayout(h, w, f, batch=len(views))
+    result = sphere_trace(
+        sdf, to_blocks(origins), to_blocks(dirs), num_steps=num_steps,
+        max_depth=max_depth, surface_threshold=surface_threshold,
+        corner_table=corner_table, early_exit=True,
+        head_steps=0, tail_chunks=tail_chunks,
+        t_init=to_blocks(t_init), t_init_valid_from=to_blocks(t_valid_from),
+        sort_key=to_blocks(sort_key), certified_miss=to_blocks(cert_miss),
+        sort_block=f * f, **trace_kwargs)
+    return RenderResult(*(from_blocks(v) for v in result))
+
+
+def render_occupancy_image(sdf: SignedDistanceField, camera: PinholeCamera,
+                           num_steps: int = 64, max_depth: float = 100.0,
+                           softness: float = 1.0,
+                           **render_kwargs) -> Tensor:
+    """Soft silhouette: the sigmoid of the final SDF sample, a smooth hit
+    mask whose gradients reach voxels even for near-miss rays.
+    ``render_kwargs`` go to :func:`render_depth`."""
+    result = render_depth(sdf, camera, num_steps=num_steps,
+                          max_depth=max_depth, **render_kwargs)
+    scale = _f32(softness * sdf.resolution, result.distance.device)
+    d = torch.where(torch.isfinite(result.distance), result.distance,
+                    10.0 * scale)
+    return torch.sigmoid(-d / scale)
+
+
+def depth_to_pointcloud(result: RenderResult, camera: PinholeCamera,
+                        max_range: Optional[float] = None):
+    """Back-project a rendered depth image into a camera-frame
+    :class:`..ops.voxelize.PointCloud` (NaN where the ray missed), posed at
+    the camera: render -> sensor model -> carving."""
+    origins, dirs = camera_rays(camera)
+    pts_world = origins + dirs * result.depth[..., None]
+    inv = transforms.invert_isometry(camera.pose)
+    pts_cam = transforms.apply_isometry(inv, pts_world)
+    pts = torch.where(result.hit[..., None], pts_cam,
+                      _f32(float("nan"), pts_cam.device))
+    return PointCloud.create(
+        pts.reshape(-1, 3), camera.pose,
+        max_range=float("inf") if max_range is None else max_range)

@@ -1,16 +1,22 @@
-"""Differentiable SDF distance queries and the corner-brick table.
+"""Differentiable SDF queries, gradients, projections, the local-extrema
+map and the corner tables.
 
-Port of ``voxelized_geometry_tools_tpu/ops/sdf_query.py`` (the main-path
-subset): trilinear distance estimation with corrected cell-center distances,
-the corner-brick table that turns a sample's 8 corner gathers into one row
-gather, and the z-pair table (2x the grid's memory) that turns them into
-four. Every query is batched over ``[..., 3]`` points, branch-free
-(``torch.where``), and differentiable in the points and in the distances
-through autograd.
+Port of ``voxelized_geometry_tools_tpu/ops/sdf_query.py``: trilinear
+distance estimation with corrected cell-center distances, the corner-brick
+table that turns a sample's 8 corner gathers into one row gather, and the
+z-pair table (2x the grid's memory) that turns them into four; coarse and
+fine gradients; the project-out-of-collision gradient walks (each
+``lax.while_loop`` of the JAX package a Python loop with one ``any()``
+host sync a step); and the local-extrema map as pointer jumping over the
+one-step "next cell" field, with the JAX package's fixed round count.
+Every query is batched over ``[..., 3]`` points, branch-free
+(``torch.where``), and the distance queries are differentiable in the
+points and in the distances through autograd.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Tuple, Union
 
 import torch
@@ -18,12 +24,30 @@ import torch
 from ..core import transforms
 from ..core.constants import constant
 from ..core.maps import SignedDistanceField
+from .edt import _sqrt
 
 Tensor = torch.Tensor
+
+# Cells per step of the local-extrema map's gradient and output passes:
+# bounds their [m, 3] int64 index temporaries.
+_EXTREMA_CHUNK = 1 << 22
+
 
 class DistanceQuery(NamedTuple):
     """Batched ``EstimateDistanceQuery``: values and a validity mask."""
     value: Tensor
+    valid: Tensor
+
+
+class GradientQuery(NamedTuple):
+    """Batched ``GradientQuery``: ``[..., 3]`` gradients and a mask."""
+    gradient: Tensor
+    valid: Tensor
+
+
+class ProjectionResult(NamedTuple):
+    """Batched ``ProjectedPosition``: ``[..., 3]`` positions and a mask."""
+    position: Tensor
     valid: Tensor
 
 
@@ -121,6 +145,13 @@ def estimate_location_distance(sdf: SignedDistanceField,
     value = estimate_distance_interpolate(sdf, safe_p, safe_index)
     return DistanceQuery(torch.where(valid, value, _scalar(float("nan"),
                                                            value)), valid)
+
+
+def estimate_index_distance(sdf: SignedDistanceField,
+                            index: Tensor) -> DistanceQuery:
+    """``EstimateIndexDistance``: the estimate at the world-frame cell
+    centers of integer indices ``[..., 3]``."""
+    return estimate_location_distance(sdf, sdf.grid_index_to_location(index))
 
 
 def location_query_valid(sdf: SignedDistanceField, p_world: Tensor,
@@ -286,3 +317,274 @@ def estimate_location_distance_fast(
     value = cy[..., 0] * (1 - tz[..., 0]) + cy[..., 1] * tz[..., 0]
     return DistanceQuery(torch.where(valid, value, _scalar(float("nan"),
                                                            value)), valid)
+
+
+def get_grid_aligned_index_coarse_gradient(
+        sdf: SignedDistanceField, index: Tensor,
+        enable_edge_gradients: bool = False) -> GradientQuery:
+    """``GetGridAlignedIndexCoarseGradient``, batched over ``[..., 3]``:
+    central differences over +/- 1 cell at interior cells; with
+    ``enable_edge_gradients`` edge cells take the window clamped into the
+    grid, else they are invalid. Invalid lanes read NaN."""
+    idx = index
+    counts = constant(tuple(sdf.spec.counts), idx.dtype, idx.device)
+    in_bounds = torch.all((idx >= 0) & (idx < counts), dim=-1)
+    interior = torch.all((idx > 0) & (idx < counts - 1), dim=-1)
+    res = sdf.resolution
+    dist = sdf.distances
+
+    def value_at(offset):
+        return sdf.get_index(idx + constant(offset, idx.dtype, idx.device))
+
+    inv2r = _scalar(1.0 / (2.0 * res), dist)
+    g_interior = torch.stack([
+        (value_at((1, 0, 0)) - value_at((-1, 0, 0))) * inv2r,
+        (value_at((0, 1, 0)) - value_at((0, -1, 0))) * inv2r,
+        (value_at((0, 0, 1)) - value_at((0, 0, -1))) * inv2r,
+    ], dim=-1)
+
+    if enable_edge_gradients:
+        low = torch.clamp(idx - 1, min=0)
+        high = torch.minimum(idx + 1, counts - 1)
+        incr = (high - low).to(dist.dtype) * _scalar(res, dist)
+        zero = _scalar(0.0, dist)
+        tiny = _scalar(1e-30, dist)
+
+        def axis_grad(axis):
+            lo_idx = idx.clone()
+            lo_idx[..., axis] = low[..., axis]
+            hi_idx = idx.clone()
+            hi_idx[..., axis] = high[..., axis]
+            delta = sdf.get_index(hi_idx) - sdf.get_index(lo_idx)
+            return torch.where(incr[..., axis] > 0.0,
+                               delta / torch.maximum(incr[..., axis], tiny),
+                               zero)
+
+        g_edge = torch.stack([axis_grad(0), axis_grad(1), axis_grad(2)],
+                             dim=-1)
+        gradient = torch.where(interior[..., None], g_interior, g_edge)
+        valid = in_bounds
+    else:
+        gradient = g_interior
+        valid = in_bounds & interior
+    gradient = torch.where(valid[..., None], gradient,
+                           _scalar(float("nan"), gradient))
+    return GradientQuery(gradient, valid)
+
+
+def get_index_coarse_gradient(sdf: SignedDistanceField, index: Tensor,
+                              enable_edge_gradients: bool = False
+                              ) -> GradientQuery:
+    """``GetIndexCoarseGradient``: the grid-aligned gradient rotated into
+    the world frame by the origin rotation."""
+    aligned = get_grid_aligned_index_coarse_gradient(sdf, index,
+                                                     enable_edge_gradients)
+    world = transforms.rotate_vector(sdf.origin_transform, aligned.gradient)
+    return GradientQuery(world, aligned.valid)
+
+
+def get_location_coarse_gradient(sdf: SignedDistanceField, p_world: Tensor,
+                                 enable_edge_gradients: bool = False
+                                 ) -> GradientQuery:
+    """``GetLocationCoarseGradient``: the coarse gradient of the cell that
+    holds each world point ``[..., 3]``; non-finite or out-of-grid points
+    are invalid."""
+    p = p_world[..., :3]
+    finite = torch.all(torch.isfinite(p), dim=-1)
+    index = sdf.location_to_grid_index(
+        torch.where(finite[..., None], p, _scalar(0.0, p)))
+    in_bounds = finite & sdf.spec.check_grid_index_in_bounds(index)
+    counts = constant(tuple(sdf.spec.counts), index.dtype, index.device)
+    safe = torch.minimum(torch.clamp(index, min=0), counts - 1)
+    g = get_index_coarse_gradient(sdf, safe, enable_edge_gradients)
+    valid = in_bounds & g.valid
+    return GradientQuery(torch.where(valid[..., None], g.gradient,
+                                     _scalar(float("nan"), g.gradient)),
+                         valid)
+
+
+def get_location_fine_gradient(sdf: SignedDistanceField, p_world: Tensor,
+                               nominal_window_size: float) -> GradientQuery:
+    """``GetLocationFineGradient``: differences of trilinear estimates over
+    a window of ``nominal_window_size`` per axis, one-sided where only one
+    side is in the grid."""
+    dt = sdf.distances.dtype
+    p = p_world[..., :3].to(dt)
+    w = _scalar(abs(float(nominal_window_size)), sdf.distances)
+    two_w = 2.0 * w
+    nan = _scalar(float("nan"), sdf.distances)
+    in_bounds = sdf.spec.check_grid_index_in_bounds(
+        sdf.location_to_grid_index(p))
+    center = estimate_location_distance(sdf, p)
+
+    def axis_fine(axis):
+        minus = p.clone()
+        minus[..., axis] = p[..., axis] + (-w)
+        plus = p.clone()
+        plus[..., axis] = p[..., axis] + w
+        dm = estimate_location_distance(sdf, minus)
+        dp = estimate_location_distance(sdf, plus)
+        both = center.valid & dm.valid & dp.valid
+        only_minus = center.valid & dm.valid & ~dp.valid
+        only_plus = center.valid & dp.valid & ~dm.valid
+        g_both = (dp.value - dm.value) / two_w
+        g_minus = (center.value - dm.value) / w
+        g_plus = (dp.value - center.value) / w
+        g = torch.where(both, g_both,
+                        torch.where(only_minus, g_minus,
+                                    torch.where(only_plus, g_plus, nan)))
+        return g, both | only_minus | only_plus
+
+    gx, vx = axis_fine(0)
+    gy, vy = axis_fine(1)
+    gz, vz = axis_fine(2)
+    valid = in_bounds & vx & vy & vz
+    gradient = torch.where(valid[..., None], torch.stack([gx, gy, gz], dim=-1),
+                           nan)
+    return GradientQuery(gradient, valid)
+
+
+def get_index_fine_gradient(sdf: SignedDistanceField, index: Tensor,
+                            nominal_window_size: float) -> GradientQuery:
+    """``GetIndexFineGradient``: the fine gradient at the world-frame cell
+    centers of integer indices ``[..., 3]``."""
+    return get_location_fine_gradient(
+        sdf, sdf.grid_index_to_location(index), nominal_window_size)
+
+
+def project_out_of_collision(sdf: SignedDistanceField, p_world: Tensor,
+                             stepsize_multiplier: float = 0.1,
+                             max_steps: int = 1000) -> ProjectionResult:
+    """``ProjectLocationOutOfCollision``: walk each point up the coarse
+    gradient until its distance is above zero."""
+    return project_out_of_collision_to_minimum_distance(
+        sdf, p_world, 0.0, stepsize_multiplier, max_steps)
+
+
+def project_out_of_collision_to_minimum_distance(
+        sdf: SignedDistanceField, p_world: Tensor, minimum_distance: float,
+        stepsize_multiplier: float = 0.1,
+        max_steps: int = 1000) -> ProjectionResult:
+    """``ProjectLocationOutOfCollisionToMinimumDistance``, batched: each
+    point at or below ``minimum_distance`` steps along the coarse gradient
+    (edge gradients on) by at most ``stepsize_multiplier`` voxels until it
+    is above it. At most ``max_steps`` steps, each a Python iteration with
+    one host sync; walks that run out of steps or meet a flat or invalid
+    gradient return ``valid=False``. Points that start outside the grid are
+    returned unchanged with ``valid=True``."""
+    dist = sdf.distances
+    p = p_world[..., :3].to(dist.dtype)
+    res = float(sdf.resolution)
+    min_dist = _scalar(minimum_distance, dist)
+    margin = _scalar(minimum_distance + res * stepsize_multiplier * 1e-3,
+                     dist)
+    max_step = _scalar(res * stepsize_multiplier, dist)
+    grad_floor = _scalar(res * 0.25, dist)
+    zero = _scalar(0.0, dist)
+    tiny = _scalar(1e-30, dist)
+
+    start_in_bounds = sdf.spec.check_grid_index_in_bounds(
+        sdf.location_to_grid_index(p))
+    d0 = estimate_location_distance(sdf, p).value
+    d = torch.where(start_in_bounds, d0, _scalar(float("inf"), dist))
+    active = start_in_bounds & (d0 <= min_dist)
+    failed = torch.zeros_like(active)
+    for _ in range(int(max_steps)):
+        if not bool(active.any()):
+            break
+        g = get_location_coarse_gradient(sdf, p, enable_edge_gradients=True)
+        gv = torch.where(g.valid[..., None], g.gradient, zero)
+        x, y, z = gv[..., 0], gv[..., 1], gv[..., 2]
+        gnorm = _sqrt(x * x + y * y + z * z, dist.dtype)
+        productive = g.valid & (gnorm > grad_floor)
+        step = torch.minimum(max_step, margin - d)
+        direction = gv / torch.maximum(gnorm, tiny)[..., None]
+        moving = active & productive
+        p = torch.where(moving[..., None], p + direction * step[..., None], p)
+        d = torch.where(moving, estimate_location_distance(sdf, p).value, d)
+        failed = failed | (active & ~productive)
+        active = moving & (d <= min_dist)
+    return ProjectionResult(p, ~(failed | active))
+
+
+# -- Local extrema (watershed) map -------------------------------------------
+
+
+def _gradient_is_effectively_flat(gradient: Tensor,
+                                  resolution: float) -> Tensor:
+    """``GradientIsEffectiveFlat``: every |component| within
+    ``0.06125 * resolution``."""
+    thresh = _scalar(resolution * 0.06125, gradient)
+    return torch.all(torch.abs(gradient) <= thresh, dim=-1)
+
+
+def _next_from_gradient(sdf: SignedDistanceField, index: Tensor,
+                        gradient: Tensor) -> Tensor:
+    """``GetNextFromGradient``: a thresholded sign step toward increasing
+    distance (flipped inside obstacles) over the 26-neighbourhood."""
+    d = sdf.get_index(index)
+    working = torch.where((d < 0.0)[..., None], -gradient, gradient)
+    thresh = _scalar(sdf.resolution * 0.06125, working)
+    step = torch.where(working > thresh, 1,
+                       torch.where(working < -thresh, -1, 0)).to(index.dtype)
+    return index + step
+
+
+def compute_local_extrema_map(sdf: SignedDistanceField,
+                              max_jump_rounds: int = 64) -> Tensor:
+    """``ComputeLocalExtremaMap`` as the JAX package's parallel fixed point:
+    ``[nx, ny, nz, 3]`` grid-frame centers (in the field's dtype) of the
+    local extremum each cell's gradient walk reaches, ``+inf`` for walks
+    that leave the grid. Flat cells are terminals; a cycle maps to its
+    lowest flat index. The next-cell field is int32, as in the JAX package,
+    and formed ``_EXTREMA_CHUNK`` cells at a time; the pointer jumping
+    gathers with int32 indices (``index_select``), so no ``[n, 3]`` int64
+    index tensor is ever whole."""
+    spec = sdf.spec
+    nx, ny, nz = spec.counts
+    n = nx * ny * nz
+    dev = sdf.distances.device
+    i32 = torch.int32
+    nxt = torch.empty(n + 1, dtype=i32, device=dev)
+    nxt[n] = n  # the off-grid terminal, a self-loop
+    for s in range(0, n, _EXTREMA_CHUNK):
+        cells = torch.arange(s, min(s + _EXTREMA_CHUNK, n), dtype=i32,
+                             device=dev)
+        idx = spec.unflatten_index(cells)
+        grad = get_index_coarse_gradient(sdf, idx,
+                                         enable_edge_gradients=True)
+        flat = _gradient_is_effectively_flat(grad.gradient, spec.resolution)
+        step_idx = _next_from_gradient(sdf, idx, grad.gradient)
+        in_bounds = spec.check_grid_index_in_bounds(step_idx)
+        nxt[s:s + cells.numel()] = torch.where(
+            flat, cells, torch.where(in_bounds,
+                                     spec.flat_index(step_idx).to(i32),
+                                     constant(n, i32, dev)))
+        del idx, grad, step_idx
+
+    # After round k, ptr[i] is 2^k steps along i's walk and rep[i] the
+    # least index among those steps: ceil(log2 n) + 2 rounds collapse every
+    # chain onto its terminal or into its cycle.
+    rounds = max(1, min(max_jump_rounds, math.ceil(math.log2(max(n, 2))) + 2))
+    ptr = nxt
+    rep = torch.arange(n + 1, dtype=i32, device=dev)
+    for _ in range(rounds):
+        rep = torch.minimum(rep, rep.index_select(0, ptr))
+        ptr = ptr.index_select(0, ptr)
+
+    core = ptr[:n]
+    core_safe = torch.clamp(core, max=n - 1)
+    core_is_flat = (nxt.index_select(0, core_safe) == core_safe) & (core != n)
+    core_is_oob = core == n
+    target = torch.where(core_is_flat, core_safe,
+                         rep.index_select(0, core_safe))
+    del ptr, rep, core, core_safe, core_is_flat
+    dt = sdf.distances.dtype
+    out = torch.empty((n, 3), dtype=dt, device=dev)
+    inf = _scalar(float("inf"), sdf.distances)
+    for s in range(0, n, _EXTREMA_CHUNK):
+        e = min(s + _EXTREMA_CHUNK, n)
+        centers = spec.grid_index_to_location_in_grid_frame(
+            spec.unflatten_index(target[s:e]), dtype=dt)
+        out[s:e] = torch.where(core_is_oob[s:e, None], inf, centers)
+    return out.reshape(nx, ny, nz, 3)
