@@ -49,7 +49,12 @@ surfaces and holes and voids; bench.py's clutter tagged by component
 with per-object SDFs and meshes and spatial segments; the same scenes at
 128^3 on the card and the CPU, bitwise; the pipeline's clouds into a
 fresh mapper and its mesh; serialization, the DSH map with 10^6 packed
-lookups, and the viz exporters. Prints
+lookups, and the viz exporters. Then the sharded path
+(``phase_sharded``): four gloo ranks on the card at 512^3 (the pipeline's
+carve and fusion into Z slabs, both SDFs, the pixel-row and grid-sharded
+renders, the X-slab isosurface) held against the single-device port, a
+one-rank NCCL world, ``dryrun_multichip(4)``; and the nine examples at
+their defaults (``phase_examples``). Prints
 human-readable lines, then a JSON line describing each kernel, then
 ``{"ok": true, "device": ...}`` as the last line. Any failure raises, and
 the script exits non-zero; without a CUDA card it exits non-zero before
@@ -3397,6 +3402,297 @@ def phase_geometry():
     return launches
 
 
+
+# -- The sharded path and the examples ----------------------------------------
+
+SHARDED_RANKS = 4
+# Slab triangles a rank may hold (each rank's 128 x-planes of the 512^3
+# sphere hold at most about half of its 1,846,704).
+SHARDED_ISO_CAP = 1 << 21
+SPHERE_TRIANGLES = 1_846_704
+# The grid-sharded renders' exchange schedule: the depths do not depend on
+# it; 64 owner steps a phase and 4 chunks keep the eager phase loop short.
+GRID_RENDER = dict(steps_per_exchange=64, ray_chunks=4)
+GRID_CONE = dict(coarse_factor=8, cone_steps=32, cone_tail_chunks=8,
+                 **GRID_RENDER)
+# The JAX tests' tolerances (tests/test_sharded.py): the schedule and the
+# table renders 1e-5, the fixed march 1e-6, the grid-sharded march 1e-4.
+SHARDED_SCHEDULE_ATOL = 1e-5
+SHARDED_FIXED_ATOL = 1e-6
+GRID_ATOL = 1e-4
+
+
+def _camera_dict(camera):
+    return {"pose": camera.pose.cpu().numpy(), "width": camera.width,
+            "height": camera.height, "fx": float(camera.fx),
+            "fy": float(camera.fy), "cx": float(camera.cx),
+            "cy": float(camera.cy)}
+
+
+def _host_result(res):
+    return SimpleNamespace(**{k: getattr(res, k).cpu() for k in
+                              ("depth", "hit", "distance")})
+
+
+def check_sharded_render(single, depth, atol, resolution, what):
+    """A render put together from the ranks against the single-device one
+    of the same schedule: hits equal and depths within ``atol``, except
+    tangent grazers (the single render's final query within the grazer
+    band of the threshold) and budget-capped hits (final query above the
+    threshold), as phase_render_schedule excepts them. Returns the largest
+    depth difference held and the count of excepted pixels."""
+    depth = torch.from_numpy(depth)
+    thresh = 0.25 * resolution
+    excepted = ((single.distance - thresh).abs() <= GRAZER_BAND * resolution
+                ) | (single.hit & (single.distance > thresh))
+    hit = depth < 99.0
+    flips = (hit != single.hit) & ~excepted
+    if bool(flips.any()):
+        raise AssertionError(f"{what}: {int(flips.sum())} hit flips outside "
+                             "the grazer band")
+    both = hit & single.hit & ~excepted
+    err = float((depth[both] - single.depth[both]).abs().max())
+    if err > atol:
+        raise AssertionError(f"{what}: depth differs by {err} m (> {atol})")
+    return err, int((excepted & ((hit != single.hit) | (
+        (depth - single.depth).abs() > atol))).sum())
+
+
+def _same_array(a, b, what):
+    if a.shape != b.shape or not np.array_equal(a, b):
+        bad = (a != b).sum() if a.shape == b.shape else "shape"
+        raise AssertionError(f"{what}: sharded and single-device differ "
+                             f"({bad})")
+
+
+def _log_world(label, out, size):
+    """Each step's wall time, and per rank its launches, collective bytes
+    and ms, and peak device memory."""
+    for name in out["steps"][0]:
+        ms = max(st[name]["ms"] for st in out["steps"])
+        card = max(st[name]["card_used_bytes"] for st in out["steps"])
+        log(f"{label} step {name}: {ms:.1f} ms (slowest rank); card memory "
+            f"in use {card / 2 ** 30:.2f} GiB")
+        for r, st in enumerate(out["steps"]):
+            c = st[name]["collectives"]
+            per = ", ".join(
+                f"{k} {c['calls'][k]}x {c['bytes'][k] / 2 ** 20:.1f} MiB "
+                f"{c['ms'][k]:.1f} ms" for k in sorted(c["calls"]))
+            log(f"  rank {r}/{size}: launches {st[name]['launches']}; "
+                f"collectives: {per or 'none'}; staged "
+                f"{c['staged_bytes'] / 2 ** 20:.1f} MiB")
+    for r in range(size):
+        log(f"{label} rank {r}: peak device memory "
+            f"{out['peak_bytes'][r] / 2 ** 30:.3f} GiB, launches "
+            f"{out['launches'][r]}")
+
+
+def phase_sharded(camera):
+    """The sharded path (parallel/) four ranks wide at 512^3 on the one
+    card (gloo, each collective staged through host memory), held against
+    the single-device port: the pipeline's four cameras carved and fused
+    into Z slabs (occupancy bitwise), the slabs' SDF and bench.py's sphere
+    SDF from Z slabs (bitwise), the pixel-row renders of the sphere on the
+    shipped schedule and the fixed march, the slab table along x and the
+    grid-sharded renders without and with the cone prepass, and the X-slab
+    isosurface (bitwise, 1,846,704 triangles); then a one-rank NCCL world
+    (device tensors, no staging) through the carve and the SDFs, and
+    dryrun_multichip(4). No time here is a scaling number: the ranks share
+    one card and their collectives go through host memory."""
+    import gc
+    from voxelized_geometry_tools_tpu_torch import GridSpec, OccupancyMap, entry
+    from voxelized_geometry_tools_tpu_torch.models import fusion_pipeline
+    from voxelized_geometry_tools_tpu_torch.ops import (edt, isosurface,
+                                                        render, sdf_query)
+    from voxelized_geometry_tools_tpu_torch.parallel import launch, targets
+    from voxelized_geometry_tools_tpu_torch.parallel.mesh_utils import P
+
+    t_phase = time.monotonic()
+    slabs = P(None, None, "z")
+    # Single-device references, on the card, then moved to the host.
+    spec = GridSpec.from_voxel_counts(PIPE_RES, (PIPE_N,) * 3)
+    env = OccupancyMap.create(spec, default_occupancy=0.5, device="cuda")
+    clouds = pipeline_clouds("cuda")
+    with torch.no_grad():
+        out = fusion_pipeline.reconstruct(env, clouds, camera)
+        ref_occ = out.occupancy_map.occupancy.cpu().numpy()
+        ref_pipe_sdf = out.sdf.distances.cpu().numpy()
+        del out
+        mask = sphere_mask(GRID_N, "cuda")
+        sdf = edt.extract_signed_distance_field(mask, spec, None,
+                                                frame="bench")
+        table = sdf_query.build_corner_table(sdf)
+        ref_shipped = _host_result(render.render_depth(
+            sdf, camera, num_steps=NUM_STEPS, corner_table=table,
+            **SCHEDULE))
+        ref_fixed = _host_result(render.render_depth(
+            sdf, camera, num_steps=NUM_STEPS, corner_table=table))
+        del table
+        iso = isosurface.extract_isosurface(sdf, max_triangles=GEOMETRY_CAP,
+                                            frame="grid")
+        ref_tri = iso.vertices[iso.valid].cpu().numpy()
+        del iso
+        ref_sphere_sdf = sdf.distances.cpu().numpy()
+        host_mask = mask.cpu().numpy()
+        del sdf, mask
+    cloud_args = [(c.points.cpu().numpy(), c.origin_transform.cpu().numpy(),
+                   float(c.max_range)) for c in clouds]
+    del env, clouds
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    if ref_tri.shape[0] != SPHERE_TRIANGLES:
+        raise AssertionError(f"single-device sphere isosurface: "
+                             f"{ref_tri.shape[0]} triangles")
+    log(f"sharded references (single device): {time.monotonic() - t_phase:.1f}"
+        f" s; {ref_tri.shape[0]} sphere triangles")
+
+    out_specs = {"occupancy": slabs, "pipe_sdf": slabs, "sphere_sdf": slabs,
+                 "render_schedule": P("z"), "render_fixed": P("z"),
+                 "grid_fixed": P(), "grid_cone": P(), "grid_phases": P(),
+                 "iso_vertices": P("z"), "iso_valid": P("z"),
+                 "iso_counts": P(), "steps": None, "launches": None,
+                 "peak_bytes": None, "mesh": None}
+    args = (spec, cloud_args, host_mask, _camera_dict(camera), NUM_STEPS,
+            SCHEDULE, GRID_CONE, SHARDED_ISO_CAP)
+    in_specs = (None, None, slabs, None, None, None, None, None)
+    t0 = time.monotonic()
+    with launch.World(SHARDED_RANKS, "gloo", "cuda") as world:
+        t_start = time.monotonic() - t0
+        log(f"sharded world: {SHARDED_RANKS} ranks started in {t_start:.1f} "
+            f"s; {world.descriptions[0]}")
+        t0 = time.monotonic()
+        got = world.run(targets.pipeline, *args, in_specs=in_specs,
+                        out_specs=out_specs)
+        t_run = time.monotonic() - t0
+        timings = world.last_timings
+        t0 = time.monotonic()
+    log(f"sharded world: run {t_run:.1f} s, stopped in "
+        f"{time.monotonic() - t0:.1f} s; per rank (inputs, target, "
+        f"outputs, reply s): " + "; ".join(
+            f"{t['inputs_s']:.2f} {t['target_s']:.2f} {t['outputs_s']:.2f} "
+            f"{t['reply_s']:.2f}" for t in timings))
+    _log_world("sharded", got, SHARDED_RANKS)
+    total = {k: sum(r[k] for r in got["launches"])
+             for k in got["launches"][0]}
+    for r in range(SHARDED_RANKS):
+        launches = got["launches"][r]
+        # 4 clouds; 2 envelope passes for each of the 2 SDFs.
+        if launches != {"edt_bestfirst_staged": 4,
+                        "carve_tiled": len(cloud_args)}:
+            raise AssertionError(f"rank {r} launches {launches}")
+
+    _same_array(got["occupancy"], ref_occ, "fused occupancy")
+    _same_array(got["pipe_sdf"], ref_pipe_sdf, "pipeline SDF")
+    _same_array(got["sphere_sdf"], ref_sphere_sdf, "sphere SDF")
+    res = RESOLUTION
+    err_s, exc_s = check_sharded_render(ref_shipped, got["render_schedule"],
+                                        SHARDED_SCHEDULE_ATOL, res,
+                                        "pixel-row shipped schedule")
+    err_f, exc_f = check_sharded_render(ref_fixed, got["render_fixed"],
+                                        SHARDED_FIXED_ATOL, res,
+                                        "pixel-row fixed march")
+    err_g, exc_g = check_sharded_render(ref_fixed, got["grid_fixed"],
+                                        GRID_ATOL, res,
+                                        "grid-sharded slab-table march")
+    # The cone prepass starts each ray where the single-device schedule
+    # does (the same certificates), and the march from there is the same:
+    # the shipped render's depths. Then the cone contract against the
+    # fixed march, with the shipped render's final samples for the
+    # grazer test of the cone side.
+    err_gc, exc_gc = check_sharded_render(ref_shipped, got["grid_cone"],
+                                          GRID_ATOL, res,
+                                          "grid-sharded cone render")
+    cone = torch.from_numpy(got["grid_cone"])
+    lost, err_c, n_past, _ = check_cone_equiv(ref_fixed, SimpleNamespace(
+        depth=cone, hit=cone < 99.0, distance=ref_shipped.distance), res)
+    counts = got["iso_counts"]
+    tri = got["iso_vertices"][got["iso_valid"]]
+    if int(counts.sum()) != SPHERE_TRIANGLES:
+        raise AssertionError(f"sharded isosurface counts {counts}")
+    _same_array(tri, ref_tri, "isosurface triangles")
+    log(f"sharded {SHARDED_RANKS} ranks at {GRID_N}^3 ({t_run:.1f} s): "
+        f"occupancy, pipeline SDF and sphere SDF bitwise; pixel-row renders "
+        f"shipped max diff {err_s:.3e} m ({exc_s} grazer or budget-capped "
+        f"pixels excepted), fixed {err_f:.3e} m ({exc_f}); grid-sharded "
+        f"slab-table march {err_g:.3e} m ({exc_g}), "
+        f"{int(got['grid_phases'][0])} phases; with the cone prepass "
+        f"{int(got['grid_phases'][1])} phases, against the shipped render "
+        f"{err_gc:.3e} m ({exc_gc}), against the fixed march {lost} grazer "
+        f"hits lost, max depth diff {err_c:.3e} m ({n_past} grazer or "
+        f"budget-capped hits past it); isosurface {counts.tolist()} "
+        f"triangles, bitwise in rank order")
+    del got
+
+    # One rank over NCCL: device tensors, no staging.
+    t0 = time.monotonic()
+    with launch.World(1, "nccl", "cuda") as world:
+        log(f"sharded NCCL world: {world.descriptions[0]}")
+        one = world.run(targets.pipeline, *args, in_specs=in_specs,
+                        out_specs={k: out_specs[k] for k in (
+                            "occupancy", "pipe_sdf", "sphere_sdf", "steps",
+                            "launches", "peak_bytes")}, carve_only=True)
+    _log_world("nccl", one, 1)
+    for k, v in one["launches"][0].items():
+        total[k] += v
+    _same_array(one["occupancy"], ref_occ, "NCCL fused occupancy")
+    _same_array(one["pipe_sdf"], ref_pipe_sdf, "NCCL pipeline SDF")
+    _same_array(one["sphere_sdf"], ref_sphere_sdf, "NCCL sphere SDF")
+    staged = sum(st[n]["collectives"]["staged_bytes"]
+                 for st in one["steps"] for n in st)
+    if staged:
+        raise AssertionError(f"the NCCL world staged {staged} bytes")
+    log(f"sharded NCCL 1 rank ({time.monotonic() - t0:.1f} s): occupancy "
+        f"and both SDFs bitwise, nothing staged")
+    del one
+
+    t0 = time.monotonic()
+    dry = entry.dryrun_multichip(SHARDED_RANKS, backend="gloo")
+    log(f"dryrun_multichip({SHARDED_RANKS}) on the card, gloo: loss "
+        f"{float(dry['loss']):.6f}, {time.monotonic() - t0:.1f} s")
+    log(f"phase_sharded: {time.monotonic() - t_phase:.1f} s; launches of "
+        f"its worlds' pipeline steps, every rank: {total}")
+    return total
+
+
+EXAMPLES = (
+    ("voxel_raycasting", []), ("differentiable_fitting", []),
+    ("tutorial", []), ("estimate_distance", []),
+    ("pointcloud_voxelization", []), ("online_mapping", []),
+    ("isosurface_export", None), ("spatial_segments", []),
+    ("sharded_pipeline", ["--backend", "gloo", "--world-size",
+                          str(SHARDED_RANKS)]))
+
+
+def phase_examples():
+    """Every ported example on the card at its default arguments
+    (sharded_pipeline with four gloo ranks), with its output and time."""
+    import importlib
+    import tempfile
+
+    t_phase = time.monotonic()
+    for name, argv in EXAMPLES:
+        module = importlib.import_module(
+            f"voxelized_geometry_tools_tpu_torch.examples.{name}")
+        log(f"-- example {name}")
+        t0 = time.monotonic()
+        with tempfile.TemporaryDirectory() as tmp:
+            lines = module.main(
+                [f"{tmp}/isosurface.obj"] if argv is None else argv)
+        log(f"-- example {name}: {time.monotonic() - t0:.2f} s")
+        text = "\n".join(lines)
+        if name == "pointcloud_voxelization" and text.count("PASSED") != 2:
+            raise AssertionError("pointcloud_voxelization: a backend failed")
+        if name == "sharded_pipeline" and (
+                "single-device EDT: True" not in text
+                or "pixel-sharded render: True" not in text):
+            raise AssertionError("sharded_pipeline: a comparison failed")
+        if name == "online_mapping" and (
+                lines[-1] != "OK" or "integration: True" not in text):
+            raise AssertionError("online_mapping failed")
+    log(f"phase_examples: {time.monotonic() - t_phase:.1f} s")
+
+
 def main():
     name = phase_device()
     phase_build()
@@ -3430,6 +3726,10 @@ def main():
         f"{time.monotonic() - t_slice:.1f} s")
     phase_queries()
     log(f"phase_geometry launches (counted steps): {phase_geometry()}")
+    # The sharded worlds' launches (every rank's), added to the rows of
+    # the two kernels their path runs.
+    sharded_launches = phase_sharded(camera)
+    phase_examples()
     plain_512 = t_edt["plain_y"] + t_edt["plain_z"]
     kernels = []
     for kname, (source, replaces) in KERNELS.items():
@@ -3440,12 +3740,13 @@ def main():
         # launches of the [4, 2048, 2048] EDT (hoist_cmin=True), or of the
         # LONG_SHAPE EDT for the global best-first variants. The full
         # sweep's and the windowed walk's staged variants: the 512^3 backend
-        # sweep's launches and the main path's field.
+        # sweep's launches and the main path's field. The staged best-first
+        # variant and carve_tiled also count the sharded worlds' launches.
         errs = [err_cases[kname]]
         parts = [pass_bounds["y"], pass_bounds["z"]]
         if kname == "edt_bestfirst_staged":
-            n_launch, errs = launches, errs + [sweep_errs[kname], err_edt,
-                                               err_large]
+            n_launch = launches + sharded_launches[kname]
+            errs = errs + [sweep_errs[kname], err_edt, err_large]
             ms = t_edt["wrapper_y"] + t_edt["wrapper_z"]
             plain_ms = plain_512
         elif kname in glob_launches:
@@ -3485,7 +3786,8 @@ def main():
     for kname, row in carve_rows.items():
         kernels.append({
             "name": kname, "route": "cuda", "source": CSRC + "carve.cu",
-            "replaces": CARVE_REPLACES, "launches": row["launches"],
+            "replaces": CARVE_REPLACES,
+            "launches": row["launches"] + sharded_launches.get(kname, 0),
             "max_abs_err": 0.0, "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None,

@@ -154,7 +154,18 @@ def test_port_imports_no_jax():
                    "ops/topology.py", "ops/map_ops.py",
                    "core/conversions.py", "core/serialization.py",
                    "core/dsh.py", "io/messages.py", "io/pointcloud2.py",
-                   "io/viz.py", "utils/profiling.py"):
+                   "io/viz.py", "utils/profiling.py",
+                   "parallel/mesh_utils.py", "parallel/collectives.py",
+                   "parallel/launch.py", "parallel/sharded.py",
+                   "parallel/targets.py", "entry.py",
+                   "examples/_common.py", "examples/voxel_raycasting.py",
+                   "examples/differentiable_fitting.py",
+                   "examples/tutorial.py", "examples/estimate_distance.py",
+                   "examples/pointcloud_voxelization.py",
+                   "examples/online_mapping.py",
+                   "examples/isosurface_export.py",
+                   "examples/spatial_segments.py",
+                   "examples/sharded_pipeline.py"):
         assert PORT / module in files
     for path in files:
         bad = _imported_roots(path) & {"jax", "jaxlib",

@@ -34,7 +34,10 @@ voids (``ops/topology.py``), the map methods with spatial segments
 (``ops/map_ops.py``), map conversions, serialization and the dynamic
 spatial-hashed map (``core/conversions.py``, ``core/serialization.py``,
 ``core/dsh.py``), messages, PointCloud2 parsing and display exports
-(``io/``), and the profiling utilities (``utils/``).
+(``io/``), and the profiling utilities (``utils/``). Then the sharded
+paths on ``torch.distributed`` (``parallel/``: one process a rank, started
+by ``parallel/launch.py``) and the repository's examples as modules
+(``examples/``).
 """
 
 from .core.dsh import (

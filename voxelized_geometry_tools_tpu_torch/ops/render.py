@@ -654,7 +654,8 @@ def _cone_prepass(sdf: SignedDistanceField, camera: PinholeCamera,
                   max_cone_steps: Optional[int] = None,
                   cone_tail_chunks: int = 1,
                   cone_refine: Optional[int] = None,
-                  stats: Optional[dict] = None
+                  stats: Optional[dict] = None,
+                  raw_sample_fn=None
                   ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """Cone-traced coarse pass, one cone per ``factor x factor`` pixel
     block (the JAX package's ``_cone_prepass``; its docstring has the
@@ -672,7 +673,12 @@ def _cone_prepass(sdf: SignedDistanceField, camera: PinholeCamera,
     remaining steps in that many chunks; results are bitwise those of one
     chunk. ``cone_refine`` (a block size dividing ``factor``) runs a second
     stage of sub-cones that continue from their parent's depth; the images
-    are then at that block size."""
+    are then at that block size.
+
+    ``raw_sample_fn`` replaces the SDF sampler (world positions ``[..., 3]``
+    -> :class:`..ops.sdf_query.DistanceQuery`): the grid-sharded renderer
+    passes one that sums each slab owner's sample over the ranks, so every
+    rank marches the same cones with the single-device bits."""
     f = int(factor)
     dev = camera.pose.device
     wc, hc = camera.width // f, camera.height // f
@@ -704,7 +710,9 @@ def _cone_prepass(sdf: SignedDistanceField, camera: PinholeCamera,
     center, tan_t = block_geometry(f)
     origins = camera.pose[:3, 3].expand(center.shape)
 
-    if corner_table is not None:
+    if raw_sample_fn is not None:
+        raw_sample = raw_sample_fn
+    elif corner_table is not None:
         def raw_sample(pos):
             return sdf_query.estimate_location_distance_fast(
                 sdf, corner_table, pos)
