@@ -40,7 +40,13 @@ the SDF's other consumers on bench.py's 512^3 sphere (``phase_queries``):
 the mip skip and relaxed renders against the plain early-exit render, a
 batch of four views each bitwise its own render, their clouds re-carved
 into a fresh mapper, 10^6-point queries, gradients and projections against
-the CPU, the extrema map and the float64 SDF. Then the geometry and host-side
+the CPU, the extrema map and the float64 SDF. Then the grid helpers and the
+callables tests/test_torch_api_coverage.py holds against the JAX package
+(``phase_api``): 10^6 points under a rotated origin through
+``location_to_grid_index``, ``check_location_in_bounds`` and
+``estimate_distance_interpolate``, and 512^3 face adjacency, filled
+masks, the free-and-named merge and an isosurface's rasterization, each
+bitwise against the CPU. Then the geometry and host-side
 modules at 512^3 (``phase_geometry``): the sphere's SDF through
 ``map_ops``, its isosurface (welded, written as OBJ, its statistics, and
 rasterized back into a fresh map) and the analytic sphere field's; the
@@ -202,13 +208,18 @@ def phase_device():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
                          "is False); this script runs only on a CUDA card")
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
     log(f"device: {name} (torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.device_count()} card(s))")
-    log(f"nvidia-smi name,power.limit: {smi.stdout.strip()}")
+    log(f"nvidia-smi name,power.limit: {card_name_and_limit()}")
     return name
+
+
+def card_name_and_limit():
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
 
 
 def kernel_modules():
@@ -2806,6 +2817,195 @@ def phase_queries():
     log(f"phase_queries: {total:.1f} s; steps (ms, peak GiB): "
         + "; ".join(f"{n} {ms:.1f} {p / 2 ** 30:.3f}" for n, ms, p in steps))
 
+# phase_api: the seeded points (a tenth of them on cell faces) over the
+# grid and a margin of API_MARGIN voxels, and the shell width of its label
+# field and of its unknown band (voxels).
+API_POINTS = 1_000_000
+API_SEED = 16
+API_MARGIN = 8
+API_SHELL_VOXELS = 8
+
+
+def api_points(spec, origin):
+    """``API_POINTS`` float32 world points drawn in the grid frame of
+    ``spec`` under ``origin`` (numpy ``[4, 4]``) from ``API_SEED``."""
+    rng = np.random.default_rng(API_SEED)
+    counts = np.asarray(spec.counts)
+    p_grid = rng.uniform(-API_MARGIN, counts + API_MARGIN, (API_POINTS, 3))
+    faces = API_POINTS // 10
+    p_grid[:faces] = rng.integers(-API_MARGIN, counts + API_MARGIN,
+                                  (faces, 3))
+    o = origin.astype(np.float64)
+    p_world = (p_grid * spec.resolution) @ o[:3, :3].T + o[:3, 3]
+    return torch.from_numpy(p_world.astype(np.float32))
+
+
+def sphere_distances(n, resolution, device):
+    """bench.py's sphere (radius n/4 voxels about n/2) as an analytic
+    float32 distance field, negative inside."""
+    ax = (torch.arange(n, device=device, dtype=torch.float32) - n / 2.0) ** 2
+    r2 = ax[:, None, None] + ax[None, :, None] + ax[None, None, :]
+    return (torch.sqrt(r2) - n / 4.0) * resolution
+
+
+def phase_api():
+    """The grid helpers (``GridSpec.with_counts``; the module functions
+    ``location_to_grid_index`` and ``check_location_in_bounds``) and the
+    callables that tests/test_torch_api_coverage.py holds against the JAX
+    package, on bench.py's 512^3 spec under phase_rotated_carve's rotated
+    origin: 10^6 seeded points through both module functions and
+    ``estimate_distance_interpolate`` over bench.py's sphere as an analytic
+    distance field; ``face_adjacency_from_key`` on a 512^3 int32 field of
+    distance shells; ``filled_mask_from_occupancy`` (either
+    ``unknown_is_filled``) and ``merge_free_and_named_object_sdfs`` at
+    512^3; the sphere's isosurface rasterized with
+    ``rasterize_mesh_into_channel`` into a 512^3 channel. Each result is
+    held bitwise against the same call on CPU copies of its inputs (the
+    CPU tests hold each bitwise against the JAX package), the module
+    functions also against the map method on the card. Launches no
+    hand-written kernel. Logs each step's time and the phase's peak
+    device memory beside the card's name and power limit."""
+    from voxelized_geometry_tools_tpu_torch import (
+        GridSpec, SignedDistanceField, __version__)
+    from voxelized_geometry_tools_tpu_torch.core import grid, transforms
+    from voxelized_geometry_tools_tpu_torch.ops import (
+        edt, isosurface, mesh, sdf_query, topology)
+
+    card = card_name_and_limit()
+    log(f"voxelized_geometry_tools_tpu_torch.__version__: {__version__}")
+    t_phase = time.monotonic()
+    reset_launches()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+
+    def step(name, fn):
+        out, ms = _timed(fn)
+        steps.append((name, ms))
+        return out
+
+    def check(name, got, ref):
+        """``got`` (on the card) bitwise against ``ref``."""
+        if got.dtype != ref.dtype or got.shape != ref.shape:
+            raise AssertionError(f"phase_api: {name}: {got.dtype} "
+                                 f"{tuple(got.shape)} against {ref.dtype} "
+                                 f"{tuple(ref.shape)}")
+        _same_bits(got, ref.cpu(), f"phase_api: {name}")
+
+    spec = GridSpec.from_voxel_counts(RESOLUTION, (GRID_N,) * 3)
+    part = spec.with_counts((GRID_N // 2, GRID_N, GRID_N // 4))
+    if (part.counts != (GRID_N // 2, GRID_N, GRID_N // 4)
+            or part.voxel_sizes != spec.voxel_sizes
+            or part.resolution != spec.resolution):
+        raise AssertionError(f"with_counts: {part}")
+    origin_np = rotated_pipeline_origin()
+    origin_cpu = torch.from_numpy(origin_np)
+    origin = origin_cpu.cuda()
+    inv, inv_cpu = (transforms.invert_isometry(origin),
+                    transforms.invert_isometry(origin_cpu))
+    check("invert_isometry", inv, inv_cpu)
+    pts_cpu = api_points(spec, origin_np)
+    pts = pts_cpu.cuda()
+
+    idx = step("location_to_grid_index",
+               lambda: grid.location_to_grid_index(spec, inv, pts))
+    inside = step("check_location_in_bounds",
+                  lambda: grid.check_location_in_bounds(spec, inv, pts))
+    check("location_to_grid_index", idx,
+          grid.location_to_grid_index(spec, inv_cpu, pts_cpu))
+    check("check_location_in_bounds", inside,
+          grid.check_location_in_bounds(spec, inv_cpu, pts_cpu))
+    from_numpy = grid.location_to_grid_index(spec, inv, pts_cpu.numpy())
+    if from_numpy.device.type != "cuda":
+        raise AssertionError("location_to_grid_index put numpy points on "
+                             f"{from_numpy.device}, not the card")
+    check("location_to_grid_index of numpy points", from_numpy, idx)
+    in_share = float(inside.float().mean())
+    if not 0.5 < in_share < 1.0:
+        raise AssertionError(f"in-bounds share {in_share}")
+
+    dist = step(f"sphere distance field {GRID_N}^3",
+                lambda: sphere_distances(GRID_N, RESOLUTION, "cuda"))
+    sdf = SignedDistanceField.create(spec, dist, origin, frame="api")
+    sdf_cpu = SignedDistanceField.create(spec, dist.cpu(), origin_cpu,
+                                         frame="api")
+    check("the map's inverse origin transform",
+          sdf.inverse_origin_transform(), inv)
+    check("the map method location_to_grid_index",
+          sdf.location_to_grid_index(pts), idx)
+    safe = torch.clamp(idx, 0, GRID_N - 1)
+    est = step("estimate_distance_interpolate",
+               lambda: sdf_query.estimate_distance_interpolate(
+                   sdf, pts, safe))
+    check("estimate_distance_interpolate", est,
+          sdf_query.estimate_distance_interpolate(sdf_cpu, pts_cpu,
+                                                  safe.cpu()))
+    if not bool(torch.isfinite(est).all()):
+        raise AssertionError("estimate_distance_interpolate: non-finite "
+                             "values on clamped indices")
+
+    key = torch.floor(dist / (API_SHELL_VOXELS * RESOLUTION)).to(torch.int32)
+    adj = step("face_adjacency_from_key",
+               lambda: topology.face_adjacency_from_key(key))
+    for axis, got, ref in zip("xyz", adj, topology.face_adjacency_from_key(
+            key.cpu())):
+        check(f"face_adjacency_from_key, {axis}", got, ref)
+    del key, adj
+
+    band = API_SHELL_VOXELS * RESOLUTION
+    occ = torch.where(dist < 0.0, 1.0, torch.where(dist < band, 0.5, 0.0))
+    occ_cpu = occ.cpu()
+    for unknown in (True, False):
+        filled = step(f"filled_mask_from_occupancy unknown_is_filled="
+                      f"{unknown}", lambda: edt.filled_mask_from_occupancy(
+                          occ, unknown))
+        check(f"filled_mask_from_occupancy({unknown})", filled,
+              edt.filled_mask_from_occupancy(occ_cpu, unknown))
+        del filled
+    del occ, occ_cpu
+
+    named = -torch.flip(dist, (0,))
+    merged = step("merge_free_and_named_object_sdfs",
+                  lambda: edt.merge_free_and_named_object_sdfs(dist, named))
+    check("merge_free_and_named_object_sdfs", merged,
+          edt.merge_free_and_named_object_sdfs(sdf_cpu.distances,
+                                               named.cpu()))
+    del named, merged
+
+    iso = step("extract_isosurface", lambda: isosurface.extract_isosurface(
+        sdf, max_triangles=GEOMETRY_CAP))
+    if bool(iso.overflowed):
+        raise AssertionError(f"isosurface overflowed: {int(iso.num_triangles)}")
+    verts = iso.vertices[iso.valid].reshape(-1, 3)
+    tris = torch.arange(verts.shape[0], device="cuda").reshape(-1, 3)
+    del iso
+    channel = step(f"rasterize_mesh_into_channel, {tris.shape[0]} "
+                   "triangles", lambda: mesh.rasterize_mesh_into_channel(
+                       spec, origin, torch.zeros(spec.counts, device="cuda"),
+                       verts, tris))
+    check("rasterize_mesh_into_channel", channel,
+          mesh.rasterize_mesh_into_channel(
+              spec, origin_cpu, torch.zeros(spec.counts), verts.cpu(),
+              tris.cpu()))
+    n_filled = int((channel == 1.0).sum())
+    if n_filled == 0:
+        raise AssertionError("the rasterized isosurface filled no cell")
+    del channel, verts, tris, sdf, dist
+
+    counts = read_launches()
+    if any(counts.values()):
+        raise AssertionError(f"phase_api launched kernels: {counts}")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"phase_api ({card}): {time.monotonic() - t_phase:.1f} s; "
+        f"{in_share:.4f} of {API_POINTS} points in bounds, {n_filled} cells "
+        "rasterized; every result bitwise equal to the CPU's; steps (ms): "
+        + "; ".join(f"{n} {ms:.2f}" for n, ms in steps)
+        + f"; peak device memory {peak / 2 ** 30:.3f} GiB "
+        f"({held / 2 ** 30:.3f} GiB held before the phase)")
+
+
 # phase_geometry: the isosurface cap at 512^3 (a 128-voxel sphere gives
 # 1,846,704 triangles, the clutter's slab 2,088,968), the torus and the
 # hollow cube (in voxels), the spatial-segment threshold (voxels), the
@@ -3725,6 +3925,7 @@ def main():
     log(f"rotated carve, mapper and fits phases: "
         f"{time.monotonic() - t_slice:.1f} s")
     phase_queries()
+    phase_api()
     log(f"phase_geometry launches (counted steps): {phase_geometry()}")
     # The sharded worlds' launches (every rank's), added to the rows of
     # the two kernels their path runs.

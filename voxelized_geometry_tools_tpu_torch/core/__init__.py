@@ -1,3 +1,6 @@
 from . import transforms
 from .grid import GridSpec
-from .maps import FREE, UNKNOWN, FILLED, OccupancyMap, SignedDistanceField
+from .maps import (
+    FREE, UNKNOWN, FILLED, OccupancyComponentMap, OccupancyMap,
+    SignedDistanceField, TaggedObjectOccupancyComponentMap,
+    TaggedObjectOccupancyMap)

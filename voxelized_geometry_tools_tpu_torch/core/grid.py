@@ -22,6 +22,7 @@ import torch
 
 from . import transforms
 from .constants import constant
+from .device import default_device
 
 Tensor = torch.Tensor
 
@@ -120,6 +121,10 @@ class GridSpec:
                 f"voxel_sizes={self.voxel_sizes}")
         return self
 
+    def with_counts(self, counts) -> "GridSpec":
+        return GridSpec(tuple(int(c) for c in counts), self.resolution,
+                        voxel_sizes=self.voxel_sizes)
+
     # -- index math ----------------------------------------------------------
 
     def grid_index_to_location_in_grid_frame(self, index: Tensor,
@@ -153,11 +158,31 @@ class GridSpec:
         return torch.stack([x, y, rem - y * nz], dim=-1).to(torch.int32)
 
 
+def location_to_grid_index(spec: GridSpec, inverse_origin_transform: Tensor,
+                           p_world) -> Tensor:
+    """World location ``[..., 3|4]`` -> int32 grid index (maybe out of
+    bounds). ``p_world`` that is not a tensor goes onto the transform's
+    device."""
+    if not isinstance(p_world, torch.Tensor):
+        p_world = torch.as_tensor(
+            p_world, device=default_device(like=inverse_origin_transform))
+    p_grid = transforms.apply_isometry(inverse_origin_transform,
+                                       p_world[..., :3])
+    return spec.location_in_grid_frame_to_grid_index(p_grid)
+
+
 def grid_index_to_location(spec: GridSpec, origin_transform: Tensor,
                            index: Tensor) -> Tensor:
     """Integer grid index ``[..., 3]`` -> world cell-center location."""
     p_grid = spec.grid_index_to_location_in_grid_frame(index)
     return transforms.apply_isometry(origin_transform, p_grid)
+
+
+def check_location_in_bounds(spec: GridSpec, inverse_origin_transform: Tensor,
+                             p_world) -> Tensor:
+    """Whether each world location ``[..., 3|4]`` lies in the grid."""
+    idx = location_to_grid_index(spec, inverse_origin_transform, p_world)
+    return spec.check_grid_index_in_bounds(idx)
 
 
 def get_index_values(data: Tensor, index: Tensor, oob_value) -> Tensor:

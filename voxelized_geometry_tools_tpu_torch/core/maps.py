@@ -23,7 +23,8 @@ import torch
 from . import transforms
 from .constants import constant
 from .device import default_device
-from .grid import GridSpec, get_index_values, grid_index_to_location
+from .grid import (GridSpec, get_index_values, grid_index_to_location,
+                   location_to_grid_index)
 
 Tensor = torch.Tensor
 
@@ -99,9 +100,8 @@ class _MapBase:
         return cached[1]
 
     def location_to_grid_index(self, p_world: Tensor) -> Tensor:
-        p_grid = transforms.apply_isometry(
-            self.inverse_origin_transform(), p_world[..., :3])
-        return self.spec.location_in_grid_frame_to_grid_index(p_grid)
+        return location_to_grid_index(
+            self.spec, self.inverse_origin_transform(), p_world)
 
     def grid_index_to_location(self, index: Tensor) -> Tensor:
         return grid_index_to_location(self.spec, self.origin_transform,

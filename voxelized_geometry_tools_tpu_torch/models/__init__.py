@@ -1,1 +1,1 @@
-from . import fusion_pipeline  # noqa: F401
+from . import fusion_pipeline, online_mapper  # noqa: F401
