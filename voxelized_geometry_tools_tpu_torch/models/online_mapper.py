@@ -32,6 +32,7 @@ import torch
 from ..core.grid import GridSpec
 from ..core.maps import OccupancyMap, SignedDistanceField
 from ..ops import edt, render, voxelize
+from ..utils.profiling import _span
 
 Tensor = torch.Tensor
 
@@ -83,16 +84,17 @@ class OnlineMapper:
         if cloud.points.device != occupancy.device:
             raise ValueError(f"a cloud lies on {cloud.points.device}, the "
                              f"map on {occupancy.device}")
-        if occupancy.device.type == "cuda" or self._run_axis < 0:
-            grid = voxelize.raycast_pointcloud(spec, origin, cloud,
-                                               self._max_steps)
-        else:
-            grid = voxelize.raycast_pointcloud_columns(
-                spec, origin, cloud, self._max_steps,
-                run_axis=self._run_axis)
-        return voxelize.combine_and_filter(
-            self._options, grid.seen_free[None], grid.seen_filled[None],
-            occupancy)
+        with _span("fusion"):
+            if occupancy.device.type == "cuda" or self._run_axis < 0:
+                grid = voxelize.raycast_pointcloud(spec, origin, cloud,
+                                                   self._max_steps)
+            else:
+                grid = voxelize.raycast_pointcloud_columns(
+                    spec, origin, cloud, self._max_steps,
+                    run_axis=self._run_axis)
+            return voxelize.combine_and_filter(
+                self._options, grid.seen_free[None], grid.seen_filled[None],
+                occupancy)
 
     def _set_occupancy(self, occupancy: Tensor, frames: int) -> OccupancyMap:
         self._map = self._map.replace(occupancy=occupancy)

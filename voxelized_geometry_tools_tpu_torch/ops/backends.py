@@ -24,6 +24,7 @@ import torch
 from ..core import transforms
 from ..core.device import default_device
 from ..core.maps import OccupancyMap
+from ..utils.profiling import _span
 from .voxelize import (FilterOptions, PointCloud, TrackingGrid,
                        VoxelizerRuntime, combine_and_filter, pick_run_axis,
                        raycast_pointcloud, raycast_pointcloud_columns,
@@ -85,9 +86,10 @@ class AcceleratorPointCloudVoxelizer:
     twins as the JAX package chooses them: the column carve along
     :func:`~.voxelize.pick_run_axis` for clouds of 4,096 points and more
     unless ``CARVE_COLUMNS=0``, else the walk. The tracking grids stay on
-    the device between carve and filter, and the returned
-    ``VoxelizerRuntime`` has the phase split (one sync between phases).
-    Without a card, ``device=None`` raises."""
+    the device between carve and filter; a ``runtime_log_fn`` gets the
+    phase split as a ``VoxelizerRuntime`` (the device is then synchronized
+    after each phase; without one, nothing waits for it). Without a card,
+    ``device=None`` raises."""
 
     def __init__(self, options: Optional[Dict[str, int]] = None,
                  logging_fn: LoggingFunction = None, device=None):
@@ -172,16 +174,21 @@ class AcceleratorPointCloudVoxelizer:
                                         max_steps=self._max_steps)
         spec = static_environment.spec
         spec.enforce_uniform_voxel_size()
-        t0 = time.monotonic()
-        seen_free, seen_filled = self._carve(
-            spec, static_environment.origin_transform, pointclouds)
-        _sync(self.device)
-        t1 = time.monotonic()
-        occupancy = combine_and_filter(filter_options, seen_free, seen_filled,
-                                       static_environment.occupancy)
-        _sync(self.device)
-        if runtime_log_fn is not None:
-            runtime_log_fn(VoxelizerRuntime(t1 - t0, time.monotonic() - t1))
+        timed = runtime_log_fn is not None
+        with _span("fusion"):
+            t0 = time.monotonic()
+            seen_free, seen_filled = self._carve(
+                spec, static_environment.origin_transform, pointclouds)
+            if timed:
+                _sync(self.device)
+            t1 = time.monotonic()
+            occupancy = combine_and_filter(filter_options, seen_free,
+                                           seen_filled,
+                                           static_environment.occupancy)
+            if timed:
+                _sync(self.device)
+                runtime_log_fn(VoxelizerRuntime(t1 - t0,
+                                                time.monotonic() - t1))
         return static_environment.replace(occupancy=occupancy)
 
 

@@ -32,6 +32,7 @@ from ..core.device import default_device
 from ..core.grid import GridSpec
 from ..core.maps import SignedDistanceField
 from ..kernels import edt_bestfirst, edt_envelope, edt_windowed
+from ..utils.profiling import _span
 
 Tensor = torch.Tensor
 
@@ -144,19 +145,25 @@ def signed_distance_from_filled_mask(is_filled: Tensor, resolution: float,
     their binary axis-0 passes), so an EDT makes two envelope calls, not
     four. ``dtype`` governs only the final sqrt/scale combine."""
     is_filled = is_filled.bool()
-    d_f = _binary_squared_dist_last(is_filled.movedim(0, -1)).movedim(-1, 0)
-    d_e = _binary_squared_dist_last(
-        (~is_filled).movedim(0, -1)).movedim(-1, 0)
-    d = torch.cat([d_f, d_e], dim=0)
-    del d_f, d_e
+    with _span("edt.seed_pass"):
+        d_f = _binary_squared_dist_last(
+            is_filled.movedim(0, -1)).movedim(-1, 0)
+        d_e = _binary_squared_dist_last(
+            (~is_filled).movedim(0, -1)).movedim(-1, 0)
+        d = torch.cat([d_f, d_e], dim=0)
+        del d_f, d_e
     if is_filled.shape[1] > 1:
-        d = _envelope_last(d.movedim(1, -1), block, backend).movedim(-1, 1)
+        with _span("edt.envelope"):
+            d = _envelope_last(d.movedim(1, -1), block,
+                               backend).movedim(-1, 1)
     if is_filled.shape[2] > 1:
-        d = _envelope_last(d, block, backend)
-    nx = is_filled.shape[0]
-    res = torch.tensor(resolution, dtype=dtype, device=d.device)
-    out = (_sqrt(d[:nx], dtype) * res - _sqrt(d[nx:], dtype) * res)
-    return out.contiguous()
+        with _span("edt.envelope"):
+            d = _envelope_last(d, block, backend)
+    with _span("edt.combine"):
+        nx = is_filled.shape[0]
+        res = torch.tensor(resolution, dtype=dtype, device=d.device)
+        out = (_sqrt(d[:nx], dtype) * res - _sqrt(d[nx:], dtype) * res)
+        return out.contiguous()
 
 
 def _sqrt(x: Tensor, dtype) -> Tensor:
@@ -348,9 +355,23 @@ def extract_signed_distance_field(
     ``streaming`` selects the slab-streamed pipeline (bit-identical, with
     slab-bounded transients: how 1024^3 fits one card); ``None`` takes it
     for grids of 640^3 voxels and more, as in the JAX package."""
+    with _span("edt"):
+        with _span("edt.mask"):
+            mask = torch.as_tensor(
+                is_filled, device=default_device(like=is_filled)).bool()
+        return _signed_distance_field(mask, spec, origin_transform, frame,
+                                      oob_value, add_virtual_border, block,
+                                      dtype, streaming)
+
+
+def _signed_distance_field(mask: Tensor, spec: GridSpec, origin_transform,
+                           frame: str, oob_value: float,
+                           add_virtual_border: bool, block: int, dtype,
+                           streaming: Optional[bool]) -> SignedDistanceField:
+    """The locked SDF of a boolean mask on its device: the body of
+    :func:`extract_signed_distance_field` and
+    :func:`extract_sdf_from_occupancy`, inside their ``vgt.edt`` span."""
     spec.enforce_uniform_voxel_size()
-    mask = torch.as_tensor(is_filled,
-                           device=default_device(like=is_filled)).bool()
     if streaming is None:
         streaming = spec.num_total >= _STREAMING_AUTO_VOXELS
     if add_virtual_border:
@@ -362,9 +383,10 @@ def extract_signed_distance_field(
     else:
         values = signed_distance_from_filled_mask(
             mask, spec.resolution, block, dtype)
-    return SignedDistanceField.create(
-        spec=spec, distances=values, origin_transform=origin_transform,
-        frame=frame, oob_value=oob_value, locked=True, dtype=dtype)
+    with _span("edt.lock"):
+        return SignedDistanceField.create(
+            spec=spec, distances=values, origin_transform=origin_transform,
+            frame=frame, oob_value=oob_value, locked=True, dtype=dtype)
 
 
 def extract_sdf_from_occupancy(
@@ -380,13 +402,14 @@ def extract_sdf_from_occupancy(
         streaming: Optional[bool] = None) -> SignedDistanceField:
     """SDF from an occupancy channel (float32 or float64 ``dtype``), on
     its device (host data goes to the CUDA card)."""
-    occupancy = torch.as_tensor(occupancy,
-                                device=default_device(like=occupancy))
-    mask = filled_mask_from_occupancy(occupancy, unknown_is_filled)
-    return extract_signed_distance_field(
-        mask, spec, origin_transform, frame=frame, oob_value=oob_value,
-        add_virtual_border=add_virtual_border, block=block, dtype=dtype,
-        streaming=streaming)
+    with _span("edt"):
+        with _span("edt.mask"):
+            occupancy = torch.as_tensor(
+                occupancy, device=default_device(like=occupancy))
+            mask = filled_mask_from_occupancy(occupancy, unknown_is_filled)
+        return _signed_distance_field(mask, spec, origin_transform, frame,
+                                      oob_value, add_virtual_border, block,
+                                      dtype, streaming)
 
 
 def merge_free_and_named_object_sdfs(free_sdf: Tensor,

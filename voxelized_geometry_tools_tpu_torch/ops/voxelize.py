@@ -41,6 +41,7 @@ from ..core.grid import GridSpec
 from ..core.maps import OccupancyMap
 from ..kernels import carve as carve_kernels
 from ..kernels.carve import RaySetup, segment_steps
+from ..utils.profiling import _span
 from .edt import _sqrt
 
 Tensor = torch.Tensor
@@ -84,19 +85,21 @@ class PointCloud:
         """On ``device``; None means the device of ``points`` if it is a
         tensor, else the CUDA card."""
         device = default_device(device, like=points)
-        if isinstance(points, Tensor):
-            pts = points.to(device=device, dtype=torch.float32)
-        else:
-            pts = torch.tensor(np.asarray(points, np.float32), device=device)
-        pts = pts.reshape(-1, 3)
-        if origin_transform is None:
-            pose = torch.eye(4, dtype=torch.float32, device=device)
-        else:
-            pose = _as_f32(origin_transform, device)
-        return PointCloud(points=pts, origin_transform=pose,
-                          max_range=torch.tensor(float(max_range),
-                                                 dtype=torch.float32,
-                                                 device=device))
+        with _span("ingest"):
+            if isinstance(points, Tensor):
+                pts = points.to(device=device, dtype=torch.float32)
+            else:
+                pts = torch.tensor(np.asarray(points, np.float32),
+                                   device=device)
+            pts = pts.reshape(-1, 3)
+            if origin_transform is None:
+                pose = torch.eye(4, dtype=torch.float32, device=device)
+            else:
+                pose = _as_f32(origin_transform, device)
+            return PointCloud(points=pts, origin_transform=pose,
+                              max_range=torch.tensor(float(max_range),
+                                                     dtype=torch.float32,
+                                                     device=device))
 
 
 class TrackingGrid(NamedTuple):
@@ -107,8 +110,9 @@ class TrackingGrid(NamedTuple):
 
 class VoxelizerRuntime(NamedTuple):
     """Phase wall times (pointcloud_voxelization_interface.hpp:206-229),
-    always measured: the port is eager, and syncs the device between the
-    carve and the filter."""
+    measured only for a caller that passes a ``runtime_log_fn``: the port is
+    eager, so the voxelizer then synchronizes the device after the carve and
+    after the filter."""
     raycasting_time: float
     filtering_time: float
 
@@ -326,7 +330,6 @@ def raycast_pointcloud(spec: GridSpec, grid_origin_transform,
     if backend == "cuda" and dev.type != "cuda":
         raise ValueError(f"backend='cuda' needs a cloud on a CUDA device, "
                          f"got one on {dev}")
-    X_GC = _grid_frame_transform(grid_origin_transform, cloud)
     n_rays = cloud.points.shape[0]
     if _out is None:
         out = TrackingGrid(*(torch.empty(spec.counts, dtype=torch.int32,
@@ -342,19 +345,26 @@ def raycast_pointcloud(spec: GridSpec, grid_origin_transform,
     if backend == "cuda":
         # The kernel takes every ray in one launch and writes both grids
         # in full.
-        setup = _ray_visits(spec, *_prepare_rays(
-            spec, X_GC, cloud.points, cloud.max_range))
-        carve_kernels.carve_tiled(spec.counts, setup, n_steps, free, filled)
+        with _span("fusion.ray_setup"):
+            setup = ray_setup(spec, grid_origin_transform, cloud)
+        with _span("fusion.carve"):
+            carve_kernels.carve_tiled(spec.counts, setup, n_steps, free,
+                                      filled)
         return out
+    with _span("fusion.ray_setup"):
+        X_GC = _grid_frame_transform(grid_origin_transform, cloud)
     free.zero_()
     filled.zero_()
     # The plain walk goes in chunks so that its per-step temporaries stay
     # bounded.
     chunk = _balanced_chunk(n_rays, ray_chunk)
     for lo in range(0, n_rays, chunk):
-        setup = _ray_visits(spec, *_prepare_rays(
-            spec, X_GC, cloud.points[lo:lo + chunk], cloud.max_range))
-        carve_kernels.carve_plain(spec.counts, setup, n_steps, free, filled)
+        with _span("fusion.ray_setup"):
+            setup = _ray_visits(spec, *_prepare_rays(
+                spec, X_GC, cloud.points[lo:lo + chunk], cloud.max_range))
+        with _span("fusion.carve"):
+            carve_kernels.carve_plain(spec.counts, setup, n_steps, free,
+                                      filled)
     return out
 
 
@@ -945,16 +955,17 @@ def combine_and_filter(options: FilterOptions, seen_free: Tensor,
     left untouched; others become filled if any camera saw a hit, free if
     enough cameras saw through, else unknown."""
     dev = occupancy.device
-    seen = counts_seen_as(options, seen_free, seen_filled)
-    cameras_filled = (seen == SeenAs.FILLED).to(torch.int32).sum(
-        dim=0, dtype=torch.int32)
-    cameras_free = (seen == SeenAs.FREE).to(torch.int32).sum(
-        dim=0, dtype=torch.int32)
-    fused = torch.where(
-        cameras_filled > 0, _f32(1.0, dev),
-        torch.where(cameras_free >= options.num_cameras_seen_free,
-                    _f32(0.0, dev), _f32(0.5, dev)))
-    return torch.where(occupancy <= 0.5, fused, occupancy)
+    with _span("fusion.filter"):
+        seen = counts_seen_as(options, seen_free, seen_filled)
+        cameras_filled = (seen == SeenAs.FILLED).to(torch.int32).sum(
+            dim=0, dtype=torch.int32)
+        cameras_free = (seen == SeenAs.FREE).to(torch.int32).sum(
+            dim=0, dtype=torch.int32)
+        fused = torch.where(
+            cameras_filled > 0, _f32(1.0, dev),
+            torch.where(cameras_free >= options.num_cameras_seen_free,
+                        _f32(0.0, dev), _f32(0.5, dev)))
+        return torch.where(occupancy <= 0.5, fused, occupancy)
 
 
 def voxelize_pointclouds(
@@ -966,28 +977,33 @@ def voxelize_pointclouds(
     """End-to-end ``VoxelizePointClouds`` (pointcloud_voxelization_interface.
     hpp:246-292): carve each cloud into its slice of one stacked pair of
     tracking grids (:func:`raycast_pointcloud`: the tiled carve kernel for
-    clouds on a CUDA device), then fuse. The device is synchronized after each phase, so
-    the ``VoxelizerRuntime`` given to ``runtime_log_fn`` is the phases'
-    wall time."""
+    clouds on a CUDA device), then fuse. Given a ``runtime_log_fn``, the
+    device is synchronized after each phase, so the ``VoxelizerRuntime``
+    given to it is the phases' wall time; without one, nothing waits for
+    the device."""
     filter_options.validate()
     spec = static_environment.spec
     dev = static_environment.occupancy.device
+    timed = runtime_log_fn is not None
 
-    t0 = time.monotonic()
-    seen_free, seen_filled = stacked_grids(spec, len(pointclouds), dev)
-    for i, cloud in enumerate(pointclouds):
-        if cloud.points.device != dev:
-            raise ValueError(f"a cloud lies on {cloud.points.device}, the "
-                             f"static environment on {dev}")
-        raycast_pointcloud(spec, static_environment.origin_transform, cloud,
-                           max_steps,
-                           _out=TrackingGrid(seen_free[i], seen_filled[i]))
-    _sync(dev)
-    t1 = time.monotonic()
-    occupancy = combine_and_filter(filter_options, seen_free, seen_filled,
-                                   static_environment.occupancy)
-    _sync(dev)
-    t2 = time.monotonic()
-    if runtime_log_fn is not None:
-        runtime_log_fn(VoxelizerRuntime(t1 - t0, t2 - t1))
+    with _span("fusion"):
+        t0 = time.monotonic()
+        seen_free, seen_filled = stacked_grids(spec, len(pointclouds), dev)
+        for i, cloud in enumerate(pointclouds):
+            if cloud.points.device != dev:
+                raise ValueError(f"a cloud lies on {cloud.points.device}, "
+                                 f"the static environment on {dev}")
+            raycast_pointcloud(spec, static_environment.origin_transform,
+                               cloud, max_steps,
+                               _out=TrackingGrid(seen_free[i],
+                                                 seen_filled[i]))
+        if timed:
+            _sync(dev)
+        t1 = time.monotonic()
+        occupancy = combine_and_filter(filter_options, seen_free,
+                                       seen_filled,
+                                       static_environment.occupancy)
+        if timed:
+            _sync(dev)
+            runtime_log_fn(VoxelizerRuntime(t1 - t0, time.monotonic() - t1))
     return static_environment.replace(occupancy=occupancy)

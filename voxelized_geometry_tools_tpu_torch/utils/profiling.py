@@ -8,6 +8,14 @@ Port of ``voxelized_geometry_tools_tpu/utils/profiling.py``:
   the card (the device time between the phase's start and end on the
   current stream) and with the host's monotonic clock on the CPU;
 * :func:`trace` records a ``torch.profiler`` trace (TensorBoard format).
+
+The mapping path marks its layers with ``vgt.*`` annotations
+(:func:`_span`: ``vgt.ingest``, ``vgt.fusion`` with its ``ray_setup``,
+``carve`` and ``filter``, ``vgt.edt`` with its ``mask``, ``seed_pass``,
+``envelope``, ``combine`` and ``lock``). They are recorded only while a
+profiler runs, through :func:`trace` or any ``torch.profiler`` session, and
+land in its trace beside the kernels, on the same clock: a dotted name
+gives the parent layer, nesting on the host thread the caller.
 """
 
 from __future__ import annotations
@@ -17,6 +25,19 @@ import time
 from typing import Dict, Optional
 
 import torch
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def _span(name: str):
+    """``torch.profiler.record_function("vgt." + name)`` while a profiler
+    records, else a no-op context. The check costs a fraction of a
+    microsecond; a ``record_function`` entered with no profiler running
+    costs about ten. A span adds no synchronization, no host copy and no
+    state: the profiler keeps it and writes it out with its trace."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function("vgt." + name)
+    return _NO_SPAN
 
 
 def _leaves(value):
