@@ -24,7 +24,7 @@ import functools
 
 import torch
 
-from . import build
+from . import build, edt_seed
 from .edt_bestfirst import (CHUNK, LINES_ARGTYPES, TILE_Q, WARP_LINES,
                             _check_input, _stream_args, fit_warps,
                             launch_on_lines, parabolic_envelope_last_plain,
@@ -174,12 +174,9 @@ def parabolic_envelope_last(f: Tensor) -> Tensor:
 def squared_edt_envelope(seed: Tensor) -> Tensor:
     """3-D squared EDT with the full-sweep envelope on axes 1 and 2 (the
     counterpart of the JAX package's ``squared_edt_pallas``): axis 0 takes
-    the binary prefix-scan pass of :mod:`..ops.edt`, which needs no
-    kernel."""
-    from ..ops.edt import _binary_squared_dist_last
-
+    the seed pass of :mod:`.edt_seed` (its kernel on a CUDA tensor)."""
     seed = seed.bool()
-    d = _binary_squared_dist_last(seed.movedim(0, -1)).movedim(-1, 0)
+    d = edt_seed.seed_fields(seed)
     if seed.shape[1] > 1:
         d = parabolic_envelope_last(d.movedim(1, -1)).movedim(-1, 1)
     if seed.shape[2] > 1:

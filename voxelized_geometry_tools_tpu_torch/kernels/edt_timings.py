@@ -5,7 +5,9 @@ JSON line.
 
 prints ``EDT_TIMINGS {...}``: the best-first wrapper's y- and z-pass times
 on the main path's 512^3 two-field field (``bench.py``'s sphere), the
-512^3 two-field signed EDT, and the streamed 1024^3 signed EDT's time, its
+two-field seed pass that makes that field (``seed_ms``: the seed kernel, or
+the plain prefix scans in a tree without it), the 512^3 two-field signed
+EDT, and the streamed 1024^3 signed EDT's time, its
 peak device memory and the part of that peak the call itself allocated
 (the peak less what was held before it), with the card's name and power
 limit. It calls only entry points that every version of the port has, so
@@ -43,13 +45,23 @@ def large_sphere_mask(n, device):
             + ax[None, None, :]) <= (n / 4.0) ** 2
 
 
+def seed_pass(mask):
+    """The two-field [2 nx, ny, nz] field of ``mask`` after the binary x
+    pass, as the tree's ``signed_distance_from_filled_mask`` makes it: its
+    seed kernel (``kernels/edt_seed.py``) where it has one, else the prefix
+    scans of ``_binary_squared_dist_last``. The bits are the same."""
+    if hasattr(edt, "edt_seed"):
+        return edt.edt_seed.seed_fields(mask, 2)
+    return torch.cat([
+        edt._binary_squared_dist_last(m.movedim(0, -1)).movedim(-1, 0)
+        for m in (mask, ~mask)])
+
+
 def stacked_passes(mask):
     """The two-field [2 nx, ny, nz] field of ``mask`` after the binary x
     pass, as the y pass reads it (a moved view) and as the z pass reads it,
     with each pass's result: ``(fy, dz, ry, rz)``."""
-    d = torch.cat([
-        edt._binary_squared_dist_last(m.movedim(0, -1)).movedim(-1, 0)
-        for m in (mask, ~mask)])
+    d = seed_pass(mask)
     fy = d.movedim(1, -1)
     ry = edt_bestfirst.parabolic_envelope_last(fy)
     dz = ry.movedim(-1, 1)
@@ -66,6 +78,7 @@ def main(label: str) -> dict:
                           10)
     out["z_ms"] = cuda_ms(lambda: edt_bestfirst.parabolic_envelope_last(dz),
                           10)
+    out["seed_ms"] = cuda_ms(lambda: seed_pass(mask), 10)
     out["edt512_ms"] = cuda_ms(
         lambda: edt.signed_distance_from_filled_mask(mask, 0.01), 5)
     del fy, dz, mask

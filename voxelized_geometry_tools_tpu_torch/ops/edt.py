@@ -4,7 +4,9 @@ Port of ``voxelized_geometry_tools_tpu/ops/edt.py``. The math is the JAX
 package's:
 
 * **Pass 1** (axis 0, binary seed field): squared distance to the nearest
-  seed from two ``cummax`` prefix scans, O(n).
+  seed, O(n): on a CUDA tensor one launch of the seed kernel
+  (:mod:`..kernels.edt_seed`), both fields of the signed EDT from one read
+  of the mask; on a CPU tensor two ``cummax`` prefix scans a field.
 * **Passes 2 and 3** (axes 1 and 2, general ``f``): the exact min-plus
   ``d[q] = min_k (q-k)^2 + f[k]``, by one of four interchangeable
   backends: the plain chunked min-plus, or one of three CUDA kernels
@@ -31,7 +33,7 @@ import torch
 from ..core.device import default_device
 from ..core.grid import GridSpec
 from ..core.maps import SignedDistanceField
-from ..kernels import edt_bestfirst, edt_envelope, edt_windowed
+from ..kernels import edt_bestfirst, edt_envelope, edt_seed, edt_windowed
 from ..utils.profiling import _span
 
 Tensor = torch.Tensor
@@ -125,7 +127,7 @@ def squared_edt(seed: Tensor, block: int = 512,
     ``"pallas-bestfirst"`` are aliases of the four. All give the same
     bits."""
     seed = seed.bool()
-    d = _binary_squared_dist_last(seed.movedim(0, -1)).movedim(-1, 0)
+    d = edt_seed.seed_fields(seed)
     if seed.shape[1] > 1:
         d = _envelope_last(d.movedim(1, -1), block, backend).movedim(-1, 1)
     if seed.shape[2] > 1:
@@ -141,17 +143,12 @@ def signed_distance_from_filled_mask(is_filled: Tensor, resolution: float,
     by ``resolution``: negative inside filled space, positive outside,
     ``+/-inf`` for fully empty/filled grids.
 
-    Both fields ride ONE envelope pass per axis (stacked along axis 0 after
-    their binary axis-0 passes), so an EDT makes two envelope calls, not
+    Both fields ride ONE envelope pass per axis (stacked along axis 0 by
+    their binary axis-0 pass), so an EDT makes two envelope calls, not
     four. ``dtype`` governs only the final sqrt/scale combine."""
     is_filled = is_filled.bool()
     with _span("edt.seed_pass"):
-        d_f = _binary_squared_dist_last(
-            is_filled.movedim(0, -1)).movedim(-1, 0)
-        d_e = _binary_squared_dist_last(
-            (~is_filled).movedim(0, -1)).movedim(-1, 0)
-        d = torch.cat([d_f, d_e], dim=0)
-        del d_f, d_e
+        d = edt_seed.seed_fields(is_filled, 2)
     if is_filled.shape[1] > 1:
         with _span("edt.envelope"):
             d = _envelope_last(d.movedim(1, -1), block,
@@ -223,9 +220,8 @@ def _streamed_binary_axis0(seed: Tensor, slab_target: int) -> Tensor:
     s_ax = _streamed_slab_axis(seed.shape, 0)
     out = torch.empty(seed.shape, dtype=torch.float32, device=seed.device)
     for start, width in _slabs(seed.shape[s_ax], slab_target):
-        sl = seed.narrow(s_ax, start, width)
-        d = _binary_squared_dist_last(sl.movedim(0, -1)).movedim(-1, 0)
-        out.narrow(s_ax, start, width).copy_(d)
+        out.narrow(s_ax, start, width).copy_(
+            edt_seed.seed_fields(seed.narrow(s_ax, start, width)))
     return out
 
 

@@ -42,6 +42,7 @@ from ..core import transforms
 from ..core.constants import constant
 from ..core.grid import GridSpec
 from ..core.maps import OccupancyMap, SignedDistanceField, _default_transform
+from ..kernels import edt_seed
 from ..ops import edt as edt_ops
 from ..ops import isosurface as iso_ops
 from ..ops import render as render_ops
@@ -104,7 +105,7 @@ def sharded_squared_edt(seed: Tensor, mesh: Mesh, axis_name: str = "z",
     seed = seed.bool()
     nx, ny, lz = seed.shape
     _check_edt_sharding((nx, ny, lz * n), n, backend)
-    d = edt_ops._binary_squared_dist_last(seed.movedim(0, -1)).movedim(-1, 0)
+    d = edt_seed.seed_fields(seed)
     if ny > 1:
         d = edt_ops._envelope_last(d.movedim(1, -1), block,
                                    backend).movedim(-1, 1)
@@ -126,12 +127,7 @@ def sharded_signed_distance(is_filled: Tensor, resolution: float,
     is_filled = is_filled.bool()
     nx, ny, lz = is_filled.shape
     _check_edt_sharding((nx, ny, lz * n), n, backend)
-    d_f = edt_ops._binary_squared_dist_last(
-        is_filled.movedim(0, -1)).movedim(-1, 0)
-    d_e = edt_ops._binary_squared_dist_last(
-        (~is_filled).movedim(0, -1)).movedim(-1, 0)
-    d = torch.cat([d_f, d_e], dim=0)  # [2nx, ny, lz]
-    del d_f, d_e
+    d = edt_seed.seed_fields(is_filled, 2)  # [2nx, ny, lz]
     if ny > 1:
         d = edt_ops._envelope_last(d.movedim(1, -1), block,
                                    backend).movedim(-1, 1)
