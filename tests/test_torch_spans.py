@@ -12,19 +12,29 @@ readers), on the CPU.
   own summary fields are those of ``tracing.summarize``.
 * Each reader: None untraced or without program spans, the fixture's
   number traced.
+* The slab-streamed EDT gives the dense path's ``seed_pass``,
+  ``envelope`` and ``combine`` spans and a ``slab_writeback`` span a slab,
+  as many as ``streamed_slabs`` counts and ``_slabs`` schedules; the dense
+  path's sequence of spans is unchanged.
+* ``edt_bestfirst.elements_launched`` counts the elements of every
+  variant's launches; the streamed EDT's three readers read a
+  hand-written trace and the counter.
 """
 
+import dataclasses
+import functools
 import json
 import types
 
 import pytest
 import torch
 
-from portbench import program_spans, registry, tracing
+from portbench import program_spans, registry, roofline, tracing
 from voxelized_geometry_tools_tpu_torch import GridSpec
 from voxelized_geometry_tools_tpu_torch.core.maps import OccupancyMap
 from voxelized_geometry_tools_tpu_torch.models.online_mapper import (
     OnlineMapper)
+from voxelized_geometry_tools_tpu_torch.kernels import edt_bestfirst
 from voxelized_geometry_tools_tpu_torch.ops import backends, edt, voxelize
 from voxelized_geometry_tools_tpu_torch.utils import profiling
 
@@ -311,3 +321,220 @@ def test_span_readers(monkeypatch, metric):
     (entry,) = [m for m in bench["per_layer"] if m["name"] == metric]
     assert entry["source"] == "program_span"
     assert entry["moves"] == "frames_per_s"
+
+
+# -- the slab-streamed EDT ----------------------------------------------------
+
+SLAB = 8
+
+
+def _edt_mask(shape):
+    g = torch.Generator().manual_seed(sum(shape))
+    return torch.rand(shape, generator=g) < 0.1
+
+
+def _streamed_extract(mask, monkeypatch):
+    """``extract_signed_distance_field`` on the streamed path, at slab
+    ``SLAB`` so that small grids take several slabs."""
+    monkeypatch.setattr(
+        edt, "signed_distance_from_filled_mask_streamed",
+        functools.partial(edt.signed_distance_from_filled_mask_streamed,
+                          slab=SLAB))
+    spec = GridSpec.from_voxel_counts(0.1, mask.shape)
+    return edt.extract_signed_distance_field(mask, spec, None,
+                                             streaming=True)
+
+
+def _pass_slabs(shape, axis):
+    """Slabs ``_slabs`` schedules for one field's pass along ``axis``."""
+    return len(edt._slabs(shape[edt._streamed_slab_axis(shape, axis)],
+                          SLAB))
+
+
+def _in_order(spans):
+    """Span names in the order they open, an outer span before the spans
+    it holds."""
+    return [s[2] for s in sorted(spans, key=lambda s: (s[0], -s[1]))]
+
+
+def test_streamed_edt_records_no_function_without_profiler(monkeypatch):
+    monkeypatch.setattr(torch.profiler, "record_function", _raise)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", _raise)
+    _streamed_extract(_edt_mask((13, 17, 19)), monkeypatch)
+
+
+@pytest.mark.parametrize("shape", [(13, 17, 19), (6, 4, 40), (20, 9, 1)])
+def test_streamed_edt_spans_and_slabs(monkeypatch, tmp_path, shape):
+    monkeypatch.setattr(torch.cuda, "synchronize", _raise)
+    mask = _edt_mask(shape)
+    before = edt.streamed_slabs
+    spans, _ = _traced(lambda: _streamed_extract(mask, monkeypatch),
+                       tmp_path)
+    names = [s[2] for s in spans]
+    passes = [a for a in range(3) if a == 0 or shape[a] > 1]
+    slabs = 2 * sum(_pass_slabs(shape, a) for a in passes)  # two fields
+    assert set(names) == EDT | {"vgt.edt.slab_writeback"}
+    assert names.count("vgt.edt") == 1
+    assert names.count("vgt.edt.seed_pass") == 2
+    assert names.count("vgt.edt.envelope") == 2 * (len(passes) - 1)
+    assert names.count("vgt.edt.combine") == 2
+    assert names.count("vgt.edt.slab_writeback") == slabs
+    assert edt.streamed_slabs - before == slabs
+    parents = [_parent(span, spans) for span in spans
+               if span[2] == "vgt.edt.slab_writeback"]
+    assert parents.count("vgt.edt.seed_pass") == 2 * _pass_slabs(shape, 0)
+    assert set(parents) <= {"vgt.edt.seed_pass", "vgt.edt.envelope"}
+    for span in spans:
+        name, parent = span[2], _parent(span, spans)
+        if name == "vgt.edt":
+            assert parent is None
+        elif name != "vgt.edt.slab_writeback":
+            assert parent == "vgt.edt", (name, parent)
+
+
+DENSE_EDT_SPANS = ["vgt.edt", "vgt.edt.mask", "vgt.edt.seed_pass",
+                   "vgt.edt.envelope", "vgt.edt.envelope", "vgt.edt.combine",
+                   "vgt.edt.lock"]
+
+
+def test_dense_edt_span_sequence_is_unchanged(tmp_path):
+    mask = _edt_mask((13, 17, 19))
+    spec = GridSpec.from_voxel_counts(0.1, mask.shape)
+    before = edt.streamed_slabs
+    spans, _ = _traced(lambda: edt.extract_signed_distance_field(
+        mask, spec, None, streaming=False), tmp_path)
+    assert _in_order(spans) == DENSE_EDT_SPANS
+    assert edt.streamed_slabs == before
+
+
+class _FakeLibrary:
+    """Stands in for the built best-first library: every launch succeeds
+    and launches nothing."""
+
+    def edt_bestfirst_staged_launch(self, *args):
+        return 0
+
+    def edt_bestfirst_cluster_launch(self, *args):
+        return 0
+
+    def edt_bestfirst_launch(self, *args):
+        return 0
+
+
+VARIANTS = {
+    "staged": (edt_bestfirst.parabolic_envelope_last_staged,
+               "launches_staged", (2, 24, 40)),
+    "cluster": (functools.partial(
+        edt_bestfirst.parabolic_envelope_last_cluster, cluster=2),
+        "launches_cluster", (3, 2048)),
+    "global": (edt_bestfirst.parabolic_envelope_last_global, "launches",
+               (5, 7, 33)),
+    "inkernel": (functools.partial(
+        edt_bestfirst.parabolic_envelope_last_global, hoist_cmin=False),
+        "launches_inkernel", (4, 9, 17)),
+}
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_elements_launched_counts_every_variant(monkeypatch, variant):
+    """On the CPU with the library faked: each launch adds the elements of
+    its ``f``, once, whatever its layout."""
+    monkeypatch.setattr(edt_bestfirst, "_library", _FakeLibrary)
+    monkeypatch.setattr(edt_bestfirst, "_check_input", lambda f: None)
+    monkeypatch.setattr(edt_bestfirst, "_stream_args", lambda f: (0, None))
+    monkeypatch.setattr(edt_bestfirst, "_resident_clusters",
+                        lambda *args: 1)
+    fn, counter, shape = VARIANTS[variant]
+    for f in (torch.zeros(shape), torch.zeros(shape[::-1]).transpose(0, -1)):
+        elements = edt_bestfirst.elements_launched
+        launches = getattr(edt_bestfirst, counter)
+        fn(f)
+        assert getattr(edt_bestfirst, counter) == launches + 1
+        assert edt_bestfirst.elements_launched == elements + f.numel()
+
+
+# Window 0-1000 us; the benchmark's sdf span 0-1000; the program's vgt.edt
+# 0-990: seed_pass 10-200 (a slab_writeback 100-150), envelope 200-600 (a
+# slab_writeback 400-450), combine 600-900.
+
+
+def _streamed_fixture():
+    spans = [("portbench.window", 0, 1000), ("portbench.sdf", 0, 1000),
+             ("vgt.edt", 0, 990), ("vgt.edt.seed_pass", 10, 190),
+             ("vgt.edt.slab_writeback", 100, 50),
+             ("vgt.edt.envelope", 200, 400),
+             ("vgt.edt.slab_writeback", 400, 50),
+             ("vgt.edt.combine", 600, 300)]
+    events = [_x("user_annotation", n, ts, dur) for n, ts, dur in spans]
+    launches = [(20, "edt_seed_kernel", 30, 60),
+                (110, "direct_copy_kernel", 110, 30),
+                (210, "edt_bestfirst_staged_kernel", 220, 160),
+                (410, "direct_copy_kernel", 410, 30),
+                (610, "sqrt_kernel", 620, 200),
+                (830, "sub_kernel", 830, 50)]
+    for corr, (at, name, ts, dur) in enumerate(launches, 1):
+        events += [_x("cuda_runtime", "cudaLaunchKernel", at, 5,
+                      correlation=corr),
+                   _x("kernel", name, ts, dur, correlation=corr)]
+    return events
+
+
+STREAMED_READERS = {"slab_writeback_ms": 0.03, "combine_ms": 0.125}
+
+
+@pytest.mark.parametrize("metric", sorted(STREAMED_READERS))
+def test_streamed_span_readers(monkeypatch, metric):
+    monkeypatch.setattr(tracing, "summarize", tracing.summarize)
+    reader = registry.reader(metric)
+    assert tracing.summarize is program_spans.summarize
+
+    def run(trace):
+        return types.SimpleNamespace(trace=trace, traced_steps=2)
+
+    assert reader.read(run(None)) is None
+    assert reader.read(run(tracing.summarize(_fixture(program=False)))) is None
+    # The dense fixture has neither span: an older program's streamed EDT.
+    assert reader.read(run(tracing.summarize(_fixture()))) is None
+    value = reader.read(run(tracing.summarize(_streamed_fixture())))
+    assert value == pytest.approx(STREAMED_READERS[metric])
+    bench = registry.load_benchmark()
+    (entry,) = [m for m in bench["per_layer"] if m["name"] == metric]
+    assert (entry["source"], entry["layer"]) == ("program_span", "EDT")
+    assert entry["workloads"] == ["kinfu_room_1024x512.map"]
+
+
+def test_edt_stream_roofline_reads_the_elements(monkeypatch):
+    from portbench import harness
+    reader = registry.reader("edt_stream_roofline")
+    (path,) = reader.COUNTERS["edt_elements"]
+    before = harness._counter_value(path)
+    monkeypatch.setattr(edt_bestfirst, "elements_launched", before + 7)
+    assert harness._counter_value(path) == before + 7
+
+    trace = tracing.TraceSummary(
+        window_s=1.0, busy_s=0.5,
+        kernel_s={"edt_bestfirst_staged_kernel": 0.003,
+                  "edt_bestfirst_cluster_kernel": 0.001,
+                  "edt_seed_kernel": 0.002},
+        kernel_count={"edt_bestfirst_staged_kernel": 3,
+                      "edt_bestfirst_cluster_kernel": 1,
+                      "edt_seed_kernel": 2}, idle_gaps=[])
+
+    def run(trace, **counters):
+        return types.SimpleNamespace(trace=trace, counters=counters)
+
+    elements = 2 ** 28
+    bound_s = 8 * elements / roofline.H100_HBM_BYTES_PER_S
+    assert reader.read(run(trace, edt_elements=elements)) == pytest.approx(
+        100 * bound_s / 0.004)
+    assert reader.read(run(None, edt_elements=elements)) is None
+    assert reader.read(run(trace)) is None
+    assert reader.read(run(trace, edt_elements=0)) is None
+    no_kernels = dataclasses.replace(trace, kernel_s={}, kernel_count={})
+    assert reader.read(run(no_kernels, edt_elements=elements)) is None
+
+
+def test_edt_stream_roofline_names_no_counter_an_older_program_lacks(
+        monkeypatch):
+    monkeypatch.delattr(edt_bestfirst, "elements_launched")
+    assert registry.reader("edt_stream_roofline").COUNTERS == {}

@@ -19,7 +19,8 @@ contiguous axis (a transposed copy where they are not) and takes its chunk
 minima from :func:`_chunk_minima` or, with ``hoist_cmin=False``, reduces
 them itself. The staged and clustered variants serve both ``hoist_cmin``
 values. ``launches_staged``, ``launches_cluster``, ``launches`` and
-``launches_inkernel`` count the launches of each.
+``launches_inkernel`` count the launches of each, and ``elements_launched``
+the float32 elements of ``f`` that all of them passed over.
 :func:`visit_count` counts the chunks a pass ordered and stopped by
 tile-level bounds visits.
 The plain version and the launch plumbing here are shared with
@@ -66,6 +67,10 @@ launches_staged = 0
 launches_cluster = 0
 launches = 0
 launches_inkernel = 0
+# float32 elements of ``f`` over every launch of every variant: each is read
+# once and written once, so a launch on one slab of the streamed EDT counts
+# that slab's elements.
+elements_launched = 0
 
 
 def parabolic_envelope_last_plain(f: Tensor, block: int = 512) -> Tensor:
@@ -442,7 +447,7 @@ def launch_on_lines(f: Tensor, name: str, launch) -> Tensor:
 def launch_staged(plan: LinePlan, f3: Tensor, out3: Tensor) -> None:
     """One launch of the staged kernel on the current stream: ``f3`` as
     :func:`plan_lines` gives it, into ``out3`` (:func:`staged_output`)."""
-    global launches_staged
+    global launches_staged, elements_launched
     s_b, s_l, s_k = f3.stride()
     o_b, o_l, o_k = out3.stride()
     err = _library().edt_bestfirst_staged_launch(
@@ -453,6 +458,7 @@ def launch_staged(plan: LinePlan, f3: Tensor, out3: Tensor) -> None:
         raise RuntimeError(f"edt_bestfirst staged kernel launch failed "
                            f"(cudaError_t {err})")
     launches_staged += 1
+    elements_launched += f3.numel()
 
 
 def _staged(f: Tensor, plan: LinePlan, f3: Tensor) -> Tensor:
@@ -489,7 +495,7 @@ def launch_cluster(plan: LinePlan, f3: Tensor, out3: Tensor) -> None:
     ``plan.cluster`` CTAs of ``plan.cluster_warps`` warps. Raises where the
     device cannot hold one such cluster (``cudaOccupancyMaxActiveClusters``,
     checked once per shape) or the launch fails."""
-    global launches_cluster
+    global launches_cluster, elements_launched
     device = f3.device.index or 0
     held = _resident_clusters(plan.n, plan.lines_contiguous, plan.cluster,
                               plan.cluster_warps, device)
@@ -507,6 +513,7 @@ def launch_cluster(plan: LinePlan, f3: Tensor, out3: Tensor) -> None:
         raise RuntimeError(f"edt_bestfirst cluster kernel launch failed "
                            f"(cudaError_t {err})")
     launches_cluster += 1
+    elements_launched += f3.numel()
 
 
 def _clustered(f: Tensor, plan: LinePlan, f3: Tensor) -> Tensor:
@@ -550,15 +557,17 @@ def parabolic_envelope_last_global(f: Tensor,
     :func:`_chunk_minima`, without it the kernel reduces them itself."""
 
     def launch(ft, out, args):
-        global launches, launches_inkernel
+        global launches, launches_inkernel, elements_launched
         cmin = _chunk_minima(ft) if hoist_cmin else None
         err = _launcher()(ft.data_ptr(),
                           None if cmin is None else cmin.data_ptr(),
                           out.data_ptr(), *args)
-        if err == 0 and hoist_cmin:
-            launches += 1
-        elif err == 0:
-            launches_inkernel += 1
+        if err == 0:
+            elements_launched += ft.numel()
+            if hoist_cmin:
+                launches += 1
+            else:
+                launches_inkernel += 1
         return err
 
     return launch_on_lines(f, "edt_bestfirst", launch)

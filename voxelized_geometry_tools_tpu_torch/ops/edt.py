@@ -64,6 +64,10 @@ BACKEND_ALIASES = {
 # temporaries stay at 1 GiB whatever the grid.
 _COMBINE_CHUNK = 1 << 27
 
+# Slabs the streamed passes walked: one per slab of each seed or envelope
+# pass of each field.
+streamed_slabs = 0
+
 
 def _binary_squared_dist_last(seed: Tensor) -> Tensor:
     """Squared distance (in voxels) to the nearest True along the last
@@ -216,25 +220,33 @@ def _streamed_slab_axis(shape, pass_axis: int) -> int:
 
 
 def _streamed_binary_axis0(seed: Tensor, slab_target: int) -> Tensor:
-    """Axis-0 binary pass, slab by slab (transients slab-sized)."""
+    """Axis-0 binary pass, slab by slab (transients slab-sized); each slab's
+    copy into the field is a ``vgt.edt.slab_writeback`` span."""
+    global streamed_slabs
     s_ax = _streamed_slab_axis(seed.shape, 0)
     out = torch.empty(seed.shape, dtype=torch.float32, device=seed.device)
     for start, width in _slabs(seed.shape[s_ax], slab_target):
-        out.narrow(s_ax, start, width).copy_(
-            edt_seed.seed_fields(seed.narrow(s_ax, start, width)))
+        slab = edt_seed.seed_fields(seed.narrow(s_ax, start, width))
+        with _span("edt.slab_writeback"):
+            out.narrow(s_ax, start, width).copy_(slab)
+        streamed_slabs += 1
     return out
 
 
 def _streamed_envelope_axis(d: Tensor, axis: int, slab_target: int,
                             block: int, backend: str) -> Tensor:
     """Envelope along ``axis``, slab by slab over a perpendicular axis, each
-    slab written back into ``d`` in place: peak memory is one grid plus a
-    slab's transients. Identical per-line math, identical bits."""
+    slab written back into ``d`` in place (a ``vgt.edt.slab_writeback``
+    span): peak memory is one grid plus a slab's transients. Identical
+    per-line math, identical bits."""
+    global streamed_slabs
     s_ax = _streamed_slab_axis(d.shape, axis)
     for start, width in _slabs(d.shape[s_ax], slab_target):
         sl = d.narrow(s_ax, start, width)
-        sl.copy_(_envelope_last(sl.movedim(axis, -1), block,
-                                backend).movedim(-1, axis))
+        slab = _envelope_last(sl.movedim(axis, -1), block, backend)
+        with _span("edt.slab_writeback"):
+            sl.copy_(slab.movedim(-1, axis))
+        streamed_slabs += 1
     return d
 
 
@@ -242,13 +254,17 @@ def squared_edt_streamed(seed: Tensor, slab: int = 128, block: int = 512,
                          backend: str = "auto") -> Tensor:
     """Exact squared EDT with slab-bounded transients, for grids whose dense
     pipeline would not fit (1024^3). Bit-identical to :func:`squared_edt`;
-    ``backend`` as there."""
+    ``backend`` as there. The seed pass and each envelope pass are the
+    dense path's ``vgt.edt.seed_pass`` and ``vgt.edt.envelope`` spans."""
     seed = seed.bool()
-    d = _streamed_binary_axis0(seed, slab)
+    with _span("edt.seed_pass"):
+        d = _streamed_binary_axis0(seed, slab)
     if seed.shape[1] > 1:
-        d = _streamed_envelope_axis(d, 1, slab, block, backend)
+        with _span("edt.envelope"):
+            d = _streamed_envelope_axis(d, 1, slab, block, backend)
     if seed.shape[2] > 1:
-        d = _streamed_envelope_axis(d, 2, slab, block, backend)
+        with _span("edt.envelope"):
+            d = _streamed_envelope_axis(d, 2, slab, block, backend)
     return d
 
 
@@ -274,16 +290,19 @@ def signed_distance_from_filled_mask_streamed(
     after the other (not stacked), each pass streams slabs, and the combine
     is taken in place chunk by chunk, so about 2 float32 grids stay
     resident instead of the dense path's 4 or more. Bit-identical to
-    :func:`signed_distance_from_filled_mask`."""
+    :func:`signed_distance_from_filled_mask`. Each field's combine is a
+    ``vgt.edt.combine`` span."""
     is_filled = is_filled.bool()
     res = torch.tensor(resolution, dtype=dtype, device=is_filled.device)
     d2 = squared_edt_streamed(is_filled, slab, block, backend)
     out = d2 if dtype == torch.float32 else torch.empty(
         d2.shape, dtype=dtype, device=d2.device)
-    _scaled_sqrt_into(out, d2, res, subtract=False)
+    with _span("edt.combine"):
+        _scaled_sqrt_into(out, d2, res, subtract=False)
     del d2
-    _scaled_sqrt_into(out, squared_edt_streamed(~is_filled, slab, block,
-                                                backend), res, subtract=True)
+    d2 = squared_edt_streamed(~is_filled, slab, block, backend)
+    with _span("edt.combine"):
+        _scaled_sqrt_into(out, d2, res, subtract=True)
     return out
 
 

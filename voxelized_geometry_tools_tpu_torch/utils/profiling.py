@@ -12,10 +12,12 @@ Port of ``voxelized_geometry_tools_tpu/utils/profiling.py``:
 The mapping path marks its layers with ``vgt.*`` annotations
 (:func:`_span`: ``vgt.ingest``, ``vgt.fusion`` with its ``ray_setup``,
 ``carve`` and ``filter``, ``vgt.edt`` with its ``mask``, ``seed_pass``,
-``envelope``, ``combine`` and ``lock``). They are recorded only while a
-profiler runs, through :func:`trace` or any ``torch.profiler`` session, and
-land in its trace beside the kernels, on the same clock: a dotted name
-gives the parent layer, nesting on the host thread the caller.
+``envelope``, ``combine`` and ``lock``, and in the slab-streamed EDT a
+``slab_writeback`` inside the seed and envelope passes around each slab's
+copy into its field). They are recorded only while a profiler runs,
+through :func:`trace` or any ``torch.profiler`` session, and land in its
+trace beside the kernels, on the same clock: a dotted name gives the parent
+layer, nesting on the host thread the caller.
 """
 
 from __future__ import annotations
