@@ -5,7 +5,10 @@
 Builds the port's CUDA kernels from the checkout (one nvcc per source, in
 parallel), checks each bit for bit against its plain PyTorch version (the
 EDT's seed kernel on masks of every kind and layout, with its launch count,
-its span's host waits and its 512^3 time against its byte bound), then
+its span's host waits and its 512^3 time against its byte bound; the
+fusion filter kernel at each benchmark cell's shape and on a ragged grid
+given unaligned and non-contiguous, with the same counts and its times
+against its byte bound), then
 drives the main path at full size (512^3 two-field EDT -> corner table ->
 640x480 sphere-traced renders, the scene and camera of bench.py) and the
 differentiable ``entry()``, checking every result. Then it drives every
@@ -154,13 +157,23 @@ PROBES = {
                          probes.MARCH_STEPS * 256),
 }
 LIBRARIES = ("edt_bestfirst", "edt_envelope", "edt_windowed", "probes",
-             "carve", "edt_seed")
+             "carve", "edt_seed", "fusion_filter")
 # The carve kernel replaces no TPU kernel: the JAX package carves with XLA
 # scatters in while-loops (raycast_pointcloud and its column twin).
 CARVE_REPLACES = "voxelized_geometry_tools_tpu/ops/voxelize.py:357"
 # Nor does the EDT's seed kernel: the JAX package takes the axis-0 binary
 # pass with XLA cummax scans (_binary_squared_dist_last).
 SEED_REPLACES = "voxelized_geometry_tools_tpu/ops/edt.py:50"
+# Nor does the fusion filter's: the JAX package fuses with XLA elementwise
+# operations (counts_seen_as and combine_and_filter).
+FILTER_REPLACES = "voxelized_geometry_tools_tpu/ops/voxelize.py:1156"
+# The fusion filter kernel's checks and times: (cameras, grid) of each
+# benchmark cell (the map's and the pair's 512^3, the 6 mm room's
+# 1024 x 1024 x 512), then a ragged grid whose inputs are also given
+# unaligned (by 4 bytes) and non-contiguous.
+FILTER_SHAPES = ((1, (512, 512, 512)), (2, (512, 512, 512)),
+                 (1, (1024, 1024, 512)))
+FILTER_RAGGED = (257, 129, 67)
 # Runtime calls that hold the host until the card has caught up (the ones
 # portbench/program_spans.py counts as host waits).
 BLOCKING_CALLS = frozenset(("cudaStreamSynchronize", "cudaDeviceSynchronize",
@@ -269,9 +282,11 @@ def staged_planned(kname, f):
 
 
 def reset_launches():
-    from voxelized_geometry_tools_tpu_torch.kernels import carve, edt_seed
+    from voxelized_geometry_tools_tpu_torch.kernels import (
+        carve, edt_seed, fusion_filter)
     eb, ee, ew = kernel_modules()
     edt_seed.launches = 0
+    fusion_filter.launches = 0
     eb.launches_staged = eb.launches_cluster = 0
     eb.launches = eb.launches_inkernel = 0
     ee.launches_staged = ee.launches = 0
@@ -280,9 +295,11 @@ def reset_launches():
 
 
 def read_launches():
-    from voxelized_geometry_tools_tpu_torch.kernels import carve, edt_seed
+    from voxelized_geometry_tools_tpu_torch.kernels import (
+        carve, edt_seed, fusion_filter)
     eb, ee, ew = kernel_modules()
     return {"edt_seed": edt_seed.launches,
+            "fusion_filter": fusion_filter.launches,
             "carve_walk": carve.launches,
             "carve_tiled": carve.launches_tiled,
             "edt_bestfirst_staged": eb.launches_staged,
@@ -321,7 +338,8 @@ def phase_build():
     from voxelized_geometry_tools_tpu_torch.kernels import build
     eb, ee, ew = kernel_modules()
     from voxelized_geometry_tools_tpu_torch import native
-    from voxelized_geometry_tools_tpu_torch.kernels import carve, edt_seed
+    from voxelized_geometry_tools_tpu_torch.kernels import (
+        carve, edt_seed, fusion_filter)
     t0 = time.monotonic()
     with ThreadPoolExecutor(len(LIBRARIES) + 1) as pool:
         # The native CPU runtime (g++) builds beside the CUDA sources.
@@ -334,6 +352,7 @@ def phase_build():
     probes._library()
     carve._library()
     edt_seed._library()
+    fusion_filter._library()
     log(f"build: {', '.join(LIBRARIES)} and the native CPU runtime in "
         f"{time.monotonic() - t0:.2f} s (in parallel)")
     for name, path in zip(LIBRARIES, paths):
@@ -562,6 +581,131 @@ def phase_edt_seed():
         f"{plain_ms:.3f} ms; phase {time.monotonic() - t_phase:.1f} s")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by}
+
+
+def filter_inputs(cameras, shape, seed):
+    """Counters ``[cameras, *shape]`` and an occupancy on the card that
+    give every vote and every kind of static cell: counts in [-2, 8), half
+    of them 0 (a carved grid's most common count), one in a thousand
+    beyond 2^24 or near 2^31 - 1 (sums that round and wrap); occupancy 0,
+    0.25, 0.5, the float after 0.5, 1.0 or NaN."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    size = (cameras,) + tuple(shape)
+    big = torch.tensor([2 ** 24 + 1, 2 ** 24 + 3, 2 ** 30 + 7, 2 ** 31 - 1],
+                       dtype=torch.int32, device="cuda")
+
+    def counters():
+        c = torch.randint(-2, 8, size, generator=g, device="cuda",
+                          dtype=torch.int32)
+        c.masked_fill_(torch.rand(size, generator=g, device="cuda") < 0.5, 0)
+        pick = torch.rand(size, generator=g, device="cuda") < 1e-3
+        c[pick] = big[torch.randint(0, 4, (int(pick.sum()),), generator=g,
+                                    device="cuda")]
+        return c
+
+    values = torch.tensor([0.0, 0.25, 0.5, float(np.nextafter(
+        np.float32(0.5), np.float32(1.0))), 1.0, float("nan")],
+        dtype=torch.float32, device="cuda")
+    occ = values[torch.randint(0, len(values), tuple(shape), generator=g,
+                               device="cuda")]
+    return counters(), counters(), occ
+
+
+def phase_fusion_filter():
+    """The fusion filter kernel bitwise against its plain version at each
+    cell's shape (three filter options each) and on a ragged grid given
+    aligned, unaligned and non-contiguous; ``combine_and_filter`` launches
+    it once in its span and blocks the host nowhere there; its time at
+    each shape beside its byte bound ((8 C + 8) bytes a voxel) and the
+    plain version's. Returns the map shape's row."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from voxelized_geometry_tools_tpu_torch.kernels import fusion_filter
+    from voxelized_geometry_tools_tpu_torch.ops import voxelize
+
+    t_phase = time.monotonic()
+    options = (voxelize.FilterOptions(), voxelize.FilterOptions(0.7, 3, 2),
+               voxelize.FilterOptions(1 / 3, 1, 3))
+
+    def check(what, o, args, ref_args):
+        before = fusion_filter.launches
+        got = fusion_filter.combine_and_filter_fused(o, *args)
+        want = fusion_filter.combine_and_filter_plain(o, *ref_args)
+        torch.cuda.synchronize()
+        if fusion_filter.launches != before + 1:
+            raise AssertionError(f"fusion_filter on {what}: "
+                                 f"{fusion_filter.launches - before} launches")
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            diff = int((got.view(torch.int32) != want.view(torch.int32))
+                       .sum())
+            raise AssertionError(f"fusion_filter != plain on {what}, {o}: "
+                                 f"{diff} voxels differ")
+
+    cameras, shape = 2, FILTER_RAGGED
+    free, filled, occ = filter_inputs(cameras, shape, 22)
+
+    def unaligned(t):
+        return torch.cat([t.flatten()[:1], t.flatten()])[1:].view(t.shape)
+
+    views = {"ragged": (free, filled, occ),
+             "ragged unaligned": tuple(map(unaligned, (free, filled, occ))),
+             "ragged, non-contiguous occupancy": (
+                 free, filled,
+                 occ.transpose(0, 2).contiguous().transpose(0, 2))}
+    for c in (1, cameras):
+        for name, args in views.items():
+            for o in options:
+                check(f"{name} {shape}, {c} camera(s)", o,
+                      (args[0][:c], args[1][:c], args[2]),
+                      (free[:c], filled[:c], occ))
+    del free, filled, occ, views
+    log(f"fusion_filter vs plain: {FILTER_RAGGED} with 1 and 2 cameras, "
+        f"aligned, unaligned and non-contiguous, {len(options)} options "
+        "each, bitwise equal")
+
+    rows = []
+    for cameras, shape in FILTER_SHAPES:
+        free, filled, occ = filter_inputs(cameras, shape, 21 + cameras)
+        name = f"{cameras} camera(s) x {'x'.join(map(str, shape))}"
+        for o in options:
+            check(name, o, (free, filled, occ), (free, filled, occ))
+        o = voxelize.FilterOptions()
+        voxelize.combine_and_filter(o, free, filled, occ)
+        torch.cuda.synchronize()
+        before = fusion_filter.launches
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            voxelize.combine_and_filter(o, free, filled, occ)
+            torch.cuda.synchronize()
+        launched = fusion_filter.launches - before
+        events = prof.events()
+        blocking, calls = blocking_calls_in(events, "vgt.fusion.filter")
+        device_ops = [e for e in events if e.device_type == DeviceType.CUDA
+                      and not e.name.startswith("vgt.")]
+        traced = [e.time_range.elapsed_us() / 1e3 for e in device_ops
+                  if "fusion_filter_kernel" in e.name]
+        if launched != 1 or len(traced) != 1 or len(device_ops) != 1:
+            raise AssertionError(
+                f"combine_and_filter on {name}: {launched} launches, device "
+                f"operations {[e.name for e in device_ops]}")
+        if blocking:
+            raise AssertionError(f"vgt.fusion.filter blocked the host: "
+                                 f"{blocking}")
+        ms = cuda_ms(lambda: fusion_filter.combine_and_filter_fused(
+            o, free, filled, occ), 20)
+        plain_ms = cuda_ms(lambda: fusion_filter.combine_and_filter_plain(
+            o, free, filled, occ), 3)
+        bound_ms, bound_by = bound_of(occ.numel() * (8 * cameras + 8), 0)
+        log(f"fusion_filter {name}: {ms:.4f} ms (traced {traced[0]:.4f}), "
+            f"bound {bound_ms:.4f} ms ({bound_by}), bound / time "
+            f"{bound_ms / ms:.3f}; plain {plain_ms:.3f} ms; one launch and "
+            f"runtime calls {calls} in vgt.fusion.filter")
+        rows.append({"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by})
+        del free, filled, occ
+    log(f"phase_fusion_filter: {time.monotonic() - t_phase:.1f} s")
+    return rows[0]
 
 
 def phase_main_path():
@@ -1875,7 +2019,7 @@ def phase_pipeline(camera):
     plain grids, the filled-count invariant, the phase times and peak
     device memory; both kernels' times on camera 0, in turns."""
     from voxelized_geometry_tools_tpu_torch import GridSpec, OccupancyMap
-    from voxelized_geometry_tools_tpu_torch.kernels import carve
+    from voxelized_geometry_tools_tpu_torch.kernels import carve, fusion_filter
     from voxelized_geometry_tools_tpu_torch.models import fusion_pipeline
     from voxelized_geometry_tools_tpu_torch.ops import (backends, edt, render,
                                                         voxelize)
@@ -1907,6 +2051,9 @@ def phase_pipeline(camera):
                              f"{len(clouds)} cameras")
     if counts["edt_bestfirst_staged"] != 2:
         raise AssertionError(f"the pipeline's EDT launches: {counts}")
+    if counts["fusion_filter"] != 1:
+        raise AssertionError(f"the pipeline's filter launches: {counts}, "
+                             "expected the fusion filter kernel once")
     occ = out.occupancy_map.occupancy
     values = set(torch.unique(occ).tolist())
     if not values <= {0.0, 0.5, 1.0} or len(values) != 3:
@@ -2010,12 +2157,12 @@ def phase_pipeline(camera):
             first = setup
         del got, sliced, ref, walk, plain, cpu_walk, setup
     del stacked
-    fused = voxelize.combine_and_filter(
+    fused = fusion_filter.combine_and_filter_plain(
         voxelize.FilterOptions(), torch.stack(plain_free),
         torch.stack(plain_filled), env.occupancy)
     if not torch.equal(fused, occ):
         raise AssertionError("the pipeline's fused occupancy differs from "
-                             "combine_and_filter of the plain grids")
+                             "the plain filter of the plain grids")
     del plain_free, plain_filled, fused
 
     # Both kernels at the main path's shape (camera 0), each a carve into
@@ -2207,6 +2354,7 @@ def phase_mapper():
     640x480 64-step render from the last cloud's camera and a 5-iteration
     localize against it. Prints each phase's time and the peak memory."""
     from voxelized_geometry_tools_tpu_torch import GridSpec
+    from voxelized_geometry_tools_tpu_torch.kernels import fusion_filter
     from voxelized_geometry_tools_tpu_torch.models.online_mapper import (
         OnlineMapper)
     from voxelized_geometry_tools_tpu_torch.models import fusion_pipeline
@@ -2221,11 +2369,13 @@ def phase_mapper():
     mapper = OnlineMapper(spec, frame="world", device="cuda")
     frame_ms = [_timed(lambda c=c: mapper.integrate(c))[1] for c in clouds]
     counts = read_launches()
-    if counts["carve_tiled"] != len(clouds) or sum(counts.values()) != len(
-            clouds):
+    filter_launches = counts["fusion_filter"]
+    if (counts["carve_tiled"], filter_launches) != (len(clouds),) * 2 or sum(
+            counts.values()) != 2 * len(clouds):
         raise AssertionError(f"the mapper's integrate launches: {counts}, "
-                             f"expected the tiled carve kernel once for each "
-                             f"of {len(clouds)} frames")
+                             f"expected the tiled carve kernel and the fusion "
+                             f"filter kernel once for each of {len(clouds)} "
+                             "frames")
     fold = OnlineMapper(spec, frame="world", device="cuda")
     _, fold_ms = _timed(lambda: fold.integrate_frames(clouds))
     occ = mapper.occupancy_map.occupancy
@@ -2239,13 +2389,13 @@ def phase_mapper():
     eye = mapper.occupancy_map.origin_transform
     for cloud in clouds:
         g = voxelize.raycast_pointcloud(spec, eye, cloud, backend="plain")
-        ref = voxelize.combine_and_filter(voxelize.FilterOptions(),
-                                          g.seen_free[None],
-                                          g.seen_filled[None], ref)
+        ref = fusion_filter.combine_and_filter_plain(
+            voxelize.FilterOptions(), g.seen_free[None], g.seen_filled[None],
+            ref)
         del g
     if not torch.equal(ref, occ):
         raise AssertionError("the mapper's occupancy differs from the plain "
-                             "walk followed by combine_and_filter")
+                             "walk followed by the plain filter")
     del ref
     values = [int((occ == v).sum()) for v in (0.0, 0.5, 1.0)]
     if not all(values):
@@ -2285,13 +2435,14 @@ def phase_mapper():
     log(f"mapper {PIPE_N}^3, {len(clouds)} frames of {IMG_W}x{IMG_H}: "
         f"integrate {[round(t, 2) for t in frame_ms]} ms a frame, "
         f"integrate_frames {fold_ms:.2f} ms for {len(clouds)} (equal "
-        f"occupancy, equal to the plain walk + combine_and_filter); sdf "
+        f"occupancy, equal to the plain walk + the plain filter); sdf "
         f"{sdf_ms:.2f} ms; render {render_ms:.2f} ms (hit fraction "
         f"{hit:.6f}); localize {LOCALIZE_ITERS} iterations {localize_ms:.2f} "
         f"ms, losses {losses.tolist()}, valid fraction "
         f"{fit.valid_fraction:.6f}; occupancy free/unknown/filled {values}; "
         f"peak device memory {peak / 2 ** 30:.3f} GiB")
     log(f"phase_mapper: {time.monotonic() - t_phase:.1f} s")
+    return filter_launches
 
 
 def phase_fits():
@@ -2680,8 +2831,8 @@ def queries_clouds(steps, sdf, table, spec, cams, batch):
     _step(steps, f"integrate_frames of {len(clouds)} rendered clouds",
           lambda: mapper.integrate_frames(clouds))
     counts = read_launches()
-    if counts["carve_tiled"] != len(clouds) or sum(counts.values()) != len(
-            clouds):
+    if (counts["carve_tiled"], counts["fusion_filter"]) != (len(clouds),) * 2 \
+            or sum(counts.values()) != 2 * len(clouds):
         raise AssertionError(f"integrate_frames launches {counts}")
     eye = mapper.occupancy_map.origin_transform
     tiled = voxelize.raycast_pointcloud(spec, eye, clouds[0])
@@ -3599,7 +3750,8 @@ def geometry_mapper(steps, launches):
     _, counts = _counted(steps, f"OnlineMapper.integrate_frames "
                                 f"({len(clouds)} clouds)",
                          lambda: mapper.integrate_frames(clouds),
-                         {"carve_tiled": len(clouds)})
+                         {"carve_tiled": len(clouds),
+                          "fusion_filter": len(clouds)})
     _add_launches(launches, counts)
     with torch.no_grad():
         iso, counts = _counted(steps, "OnlineMapper.extract_mesh",
@@ -3932,9 +4084,10 @@ def phase_sharded(camera):
              for k in got["launches"][0]}
     for r in range(SHARDED_RANKS):
         launches = got["launches"][r]
-        # 4 clouds; 2 envelope passes for each of the 2 SDFs.
+        # 4 clouds, one filter of their grids; 2 envelope passes for each
+        # of the 2 SDFs.
         if launches != {"edt_bestfirst_staged": 4,
-                        "carve_tiled": len(cloud_args)}:
+                        "carve_tiled": len(cloud_args), "fusion_filter": 1}:
             raise AssertionError(f"rank {r} launches {launches}")
 
     _same_array(got["occupancy"], ref_occ, "fused occupancy")
@@ -4053,6 +4206,7 @@ def main():
     phase_build()
     err_cases = phase_kernel_vs_plain()
     seed_row = phase_edt_seed()
+    filter_row = phase_fusion_filter()
     torch.cuda.reset_peak_memory_stats()
     spec, mask, sdf, table, camera, fixed, early, launches, seed_launches = \
         phase_main_path()
@@ -4076,7 +4230,7 @@ def main():
     carve_rows = phase_pipeline(camera)
     t_slice = time.monotonic()
     phase_rotated_carve()
-    phase_mapper()
+    filter_launches = phase_mapper()
     phase_fits()
     log(f"rotated carve, mapper and fits phases: "
         f"{time.monotonic() - t_slice:.1f} s")
@@ -4156,6 +4310,16 @@ def main():
         "name": "edt_seed", "route": "cuda", "source": CSRC + "edt_seed.cu",
         "replaces": SEED_REPLACES, "launches": seed_launches,
         "max_abs_err": 0.0, **seed_row, "library_ms": None,
+    })
+    # The fusion filter kernel: the mapper's integrate launches (one a
+    # frame) and the sharded worlds' (one a rank), its time at the map
+    # cell's shape (one camera, 512^3) and the plain version's. Every
+    # comparison of it is bitwise and a difference raises.
+    kernels.append({
+        "name": "fusion_filter", "route": "cuda",
+        "source": CSRC + "fusion_filter.cu", "replaces": FILTER_REPLACES,
+        "launches": filter_launches + sharded_launches["fusion_filter"],
+        "max_abs_err": 0.0, **filter_row, "library_ms": None,
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,4 +5,4 @@ Sources live in ``csrc/`` and are compiled with ``nvcc`` at first launch
 """
 
 from . import (carve, edt_bestfirst, edt_envelope,  # noqa: F401
-               edt_seed, edt_windowed, probes)
+               edt_seed, edt_windowed, fusion_filter, probes)

@@ -11,7 +11,9 @@ Port of ``voxelized_geometry_tools_tpu/ops/voxelize.py``, eagerly:
   column-marching twin (:func:`raycast_pointcloud_columns`, plain PyTorch,
   one masked row per visited column);
 * the ``CountsSeenAs`` fusion filter (:func:`combine_and_filter`) is a
-  per-voxel map over the stacked camera grids.
+  per-voxel map over the stacked camera grids (on a CUDA tensor the
+  hand-written kernel ``kernels/csrc/fusion_filter.cu``, one launch; on a
+  CPU tensor its plain PyTorch version).
 
 Every carve gives the same bits: the setup (:func:`_prepare_rays`) and the
 walk's closed-form crossing times are the JAX package's expressions in its
@@ -40,6 +42,7 @@ from ..core.device import default_device
 from ..core.grid import GridSpec
 from ..core.maps import OccupancyMap
 from ..kernels import carve as carve_kernels
+from ..kernels import fusion_filter
 from ..kernels.carve import RaySetup, segment_steps
 from ..utils.profiling import _span
 from .edt import _sqrt
@@ -953,19 +956,13 @@ def combine_and_filter(options: FilterOptions, seen_free: Tensor,
     """Fuse stacked per-camera counters ``[C, nx, ny, nz]`` into occupancy
     (``DoCombineAndFilterGrids``, cpu cpp:438-497). Filled static cells are
     left untouched; others become filled if any camera saw a hit, free if
-    enough cameras saw through, else unknown."""
-    dev = occupancy.device
+    enough cameras saw through, else unknown. On CUDA tensors one launch of
+    the fusion filter kernel, on CPU tensors its plain PyTorch version
+    (``kernels/fusion_filter.py``: int32 counters and a float32 occupancy
+    on one device)."""
     with _span("fusion.filter"):
-        seen = counts_seen_as(options, seen_free, seen_filled)
-        cameras_filled = (seen == SeenAs.FILLED).to(torch.int32).sum(
-            dim=0, dtype=torch.int32)
-        cameras_free = (seen == SeenAs.FREE).to(torch.int32).sum(
-            dim=0, dtype=torch.int32)
-        fused = torch.where(
-            cameras_filled > 0, _f32(1.0, dev),
-            torch.where(cameras_free >= options.num_cameras_seen_free,
-                        _f32(0.0, dev), _f32(0.5, dev)))
-        return torch.where(occupancy <= 0.5, fused, occupancy)
+        return fusion_filter.combine_and_filter_fused(
+            options, seen_free, seen_filled, occupancy)
 
 
 def voxelize_pointclouds(
