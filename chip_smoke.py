@@ -26,14 +26,13 @@ floor) with each probe held against its plain version, and bench.py's
 shipped early-exit schedule (cone prepass, block-sorted tail, sparse final
 sample) on the sphere and clutter scenes. Last, the pointcloud carve:
 bench.py's config2 cloud and an oblique one into 128^3 through the tiled
-carve kernel, bitwise against the walk kernel, the plain walk (on the card
-and on the CPU), the tiled plain model and the plain column carve, both
-kernels timed in turns, with the native CPU runtime's rate beside them;
-and the pipeline (carve -> fuse -> EDT -> render, ``reconstruct``) at
-512^3 with four 640x480 cameras through the best-available voxelizer,
-each camera's tiled carve held against the walk kernel and the plain
-carves, and both kernels timed in turns on the first camera. Then the
-carve under rotated grid origins (fault F1's 64^3 input and the first
+carve kernel, bitwise against the plain walk (on the card and on the CPU),
+the tiled plain model and the plain column carve, the kernel timed with
+the native CPU runtime's rate beside it; and the pipeline (carve -> fuse
+-> EDT -> render, ``reconstruct``) at 512^3 with four 640x480 cameras
+through the best-available voxelizer, each camera's tiled carve held
+against the plain carves, and the kernel timed on the first camera. Then
+the carve under rotated grid origins (fault F1's 64^3 input and the first
 pipeline camera into 512^3: X_GC on the card bitwise equal to the CPU's,
 the tiled kernel to the plain walk), the online mapper at 512^3 (integrate
 and integrate_frames bitwise equal to each other and to the plain walk
@@ -291,7 +290,7 @@ def reset_launches():
     eb.launches = eb.launches_inkernel = 0
     ee.launches_staged = ee.launches = 0
     ew.launches_staged = ew.launches = 0
-    carve.launches = carve.launches_tiled = 0
+    carve.launches_tiled = 0
 
 
 def read_launches():
@@ -300,7 +299,6 @@ def read_launches():
     eb, ee, ew = kernel_modules()
     return {"edt_seed": edt_seed.launches,
             "fusion_filter": fusion_filter.launches,
-            "carve_walk": carve.launches,
             "carve_tiled": carve.launches_tiled,
             "edt_bestfirst_staged": eb.launches_staged,
             "edt_bestfirst_cluster": eb.launches_cluster,
@@ -1840,10 +1838,10 @@ def grids_equal(a, b):
 
 
 def carve_fn(spec, setup, n_steps, run, zero=True):
-    """One carve of ``setup`` into fresh grids by ``run``: the walk kernel
-    or the plain walk add into grids zeroed first (``zero``); the tiled
-    kernel and its plain model write every voxel, so nothing is zeroed.
-    ``fn.grids`` holds the result, shaped as the grid."""
+    """One carve of ``setup`` into fresh grids by ``run``: the plain walk
+    adds into grids zeroed first (``zero``); the tiled kernel and its plain
+    model write every voxel, so nothing is zeroed. ``fn.grids`` holds the
+    result, shaped as the grid."""
     free = torch.empty(spec.counts, dtype=torch.int32, device="cuda")
     filled = torch.empty_like(free)
 
@@ -1854,23 +1852,6 @@ def carve_fn(spec, setup, n_steps, run, zero=True):
         run(spec.counts, setup, n_steps, free.view(-1), filled.view(-1))
     fn.grids = SimpleNamespace(seen_free=free, seen_filled=filled)
     return fn
-
-
-def carve_kernels(carve, spec, setup, n_steps):
-    """The tiled kernel and the walk kernel, each a carve into fresh
-    grids."""
-    return {"carve_tiled": carve_fn(spec, setup, n_steps, carve.carve_tiled,
-                                    zero=False),
-            "carve_walk": carve_fn(spec, setup, n_steps, carve.carve_kernel)}
-
-
-def in_turns(fns, reps):
-    """Each function's ms a call (cuda_ms over ``reps``), in turns: A B ...
-    then ... B A; a list of two times each."""
-    times = {name: [] for name in fns}
-    for name in list(fns) + list(reversed(fns)):
-        times[name].append(cuda_ms(fns[name], reps))
-    return times
 
 
 def carve_bound(spec, setup, visits):
@@ -1886,11 +1867,11 @@ def carve_bound(spec, setup, visits):
 def phase_carve():
     """bench.py's config2 carve and the oblique camera at 128^3: the tiled
     kernel (``raycast_pointcloud``'s carve on the card) bitwise against the
-    walk kernel, the plain walk (on the card and, from the same points, on
-    the CPU), the tiled plain model, the plain column carve (run axis 2,
-    pick_run_axis's choice, the diff accumulator), and the card's ray setup
-    against the CPU's; both kernels' times in turns, and the native CPU
-    runtime's and the plain carves' rates."""
+    plain walk (on the card and, from the same points, on the CPU), the
+    tiled plain model, the plain column carve (run axis 2, pick_run_axis's
+    choice, the diff accumulator), and the card's ray setup against the
+    CPU's; the kernel's time, and the native CPU runtime's and the plain
+    carves' rates."""
     from voxelized_geometry_tools_tpu_torch import GridSpec, native
     from voxelized_geometry_tools_tpu_torch.kernels import carve
     from voxelized_geometry_tools_tpu_torch.ops import voxelize
@@ -1902,13 +1883,12 @@ def phase_carve():
                        ("oblique (1, 1, 1)", oblique_cloud)):
         cloud = make("cuda")
         n_rays = cloud.points.shape[0]
-        before = (carve.launches, carve.launches_tiled)
+        before = carve.launches_tiled
         got = voxelize.raycast_pointcloud(spec, eye, cloud)
         torch.cuda.synchronize()
-        if (carve.launches, carve.launches_tiled) != (before[0],
-                                                      before[1] + 1):
-            raise AssertionError(f"{name}: raycast_pointcloud launched the "
-                                 "walk kernel or not the tiled one once")
+        if carve.launches_tiled != before + 1:
+            raise AssertionError(f"{name}: raycast_pointcloud did not launch "
+                                 "the tiled kernel once")
         axis = voxelize.pick_run_axis(cloud, eye)
         t0 = time.monotonic()
         refs = {"plain walk": voxelize.raycast_pointcloud(
@@ -1929,9 +1909,6 @@ def phase_carve():
             spec, eye.cpu(), host)
         cpu_walk_s = time.monotonic() - t0
         dev_setup = voxelize.ray_setup(spec, eye, cloud)
-        fns = carve_kernels(carve, spec, dev_setup, n_steps)
-        fns["carve_walk"]()
-        refs["walk kernel"] = fns["carve_walk"].grids
         model = carve_fn(spec, dev_setup, n_steps, carve.carve_tiled_plain,
                          zero=False)
         model()
@@ -1951,7 +1928,9 @@ def phase_carve():
                 raise AssertionError(f"{name}: the card's ray setup differs "
                                      f"from the CPU's in {field}")
         visits = carve.count_visits(spec.counts, dev_setup, n_steps)
-        times = in_turns(fns, 20)
+        tiled = carve_fn(spec, dev_setup, n_steps, carve.carve_tiled,
+                         zero=False)
+        times = {"carve_tiled": [cuda_ms(tiled, 20) for _ in range(2)]}
         wrapper_ms = cuda_ms(
             lambda: voxelize.raycast_pointcloud(spec, eye, cloud), 10)
         t0 = time.monotonic()
@@ -1975,9 +1954,8 @@ def phase_carve():
         tiled_ms = float(np.mean(times["carve_tiled"]))
         log(f"carve {name}: {n_rays} rays into {CARVE_N}^3, tiled kernel "
             f"bitwise equal to {', '.join(refs)}, setup equal to the CPU's; "
-            f"{visits} visits ({visits / n_rays:.1f} a ray); in turns, "
-            f"tiled kernel {times['carve_tiled']} ms, walk kernel (zeroing "
-            f"included) {times['carve_walk']} ms; tiled "
+            f"{visits} visits ({visits / n_rays:.1f} a ray); tiled kernel "
+            f"{times['carve_tiled']} ms = "
             f"{n_rays / (tiled_ms / 1e3):.4e} rays/s "
             f"({visits / (tiled_ms / 1e3):.4e} visits/s, bound "
             f"{bound_ms:.4f} ms by {bound_by}, reached "
@@ -2014,10 +1992,10 @@ def phase_pipeline(camera):
     tiled carve kernel, each cloud into its slice of one stacked pair),
     fused, EDT, and a 64-step render from bench.py's camera, through
     ``reconstruct``; each camera's tiled-kernel grids bitwise against the
-    walk kernel, the plain walk on the card and on the CPU and the plain
-    column carve, the fused occupancy against combine_and_filter of the
-    plain grids, the filled-count invariant, the phase times and peak
-    device memory; both kernels' times on camera 0, in turns."""
+    plain walk on the card and on the CPU and the plain column carve, the
+    fused occupancy against combine_and_filter of the plain grids, the
+    filled-count invariant, the phase times and peak device memory; the
+    tiled kernel's time on camera 0."""
     from voxelized_geometry_tools_tpu_torch import GridSpec, OccupancyMap
     from voxelized_geometry_tools_tpu_torch.kernels import carve, fusion_filter
     from voxelized_geometry_tools_tpu_torch.models import fusion_pipeline
@@ -2045,7 +2023,7 @@ def phase_pipeline(camera):
     step_s = time.monotonic() - t0
     counts = read_launches()
     peak = torch.cuda.max_memory_allocated()
-    if (counts["carve_tiled"], counts["carve_walk"]) != (len(clouds), 0):
+    if counts["carve_tiled"] != len(clouds):
         raise AssertionError(f"the pipeline's carve launches: {counts}, "
                              f"expected the tiled kernel once for each of "
                              f"{len(clouds)} cameras")
@@ -2089,23 +2067,25 @@ def phase_pipeline(camera):
         f"{[int((occ == v).sum()) for v in (0.0, 0.5, 1.0)]}; render hit "
         f"fraction {hit_frac:.6f}")
 
-    # Each camera's tiled-kernel grids, fresh and the voxelizer's slice of
-    # its stacked pair (written over garbage), against the walk kernel, the
-    # plain walk (card and CPU) and the plain column carve.
+    # Each camera's tiled-kernel grids, fresh and its slice of a stacked
+    # pair carved by the voxelizers' carve route (written over garbage),
+    # against the plain walk (card and CPU) and the plain column carve.
     eye = env.origin_transform
     n_steps = carve.segment_steps(3 * PIPE_N + 2)
     # Garbage freed where the caching allocator will likely place the pair.
     garbage = torch.full((2, len(clouds)) + spec.counts, -7,
                          dtype=torch.int32, device="cuda")
     del garbage
-    stacked = vox._carve(spec, eye, clouds)
+    stacked = voxelize.stacked_grids(spec, len(clouds), "cuda")
+    for i, cloud in enumerate(clouds):
+        voxelize._carve_cloud(spec, eye, cloud, None, 16384, None,
+                              voxelize.TrackingGrid(stacked[0][i],
+                                                    stacked[1][i]))
     plain_free, plain_filled = [], []
     first = None
     for i, cloud in enumerate(clouds):
         got = voxelize.raycast_pointcloud(spec, eye, cloud, backend="cuda")
         setup = voxelize.ray_setup(spec, eye, cloud)
-        walk = carve_kernels(carve, spec, setup, n_steps)["carve_walk"]
-        walk()
         plain = carve_fn(spec, setup, n_steps, carve.carve_plain)
         plain()
         host = voxelize.PointCloud.create(cloud.points.cpu(),
@@ -2122,12 +2102,12 @@ def phase_pipeline(camera):
         cols_s = time.monotonic() - t0
         sliced = SimpleNamespace(seen_free=stacked[0][i],
                                  seen_filled=stacked[1][i])
-        for what, other in (("walk kernel", walk.grids),
-                            ("plain walk", plain.grids),
+        for what, other in (("plain walk", plain.grids),
                             ("CPU plain walk", cpu_walk),
                             ("plain column carve", ref)):
             for which, grids in (("tiled carve kernel", got),
-                                 ("voxelizer's stacked slice", sliced)):
+                                 ("carve route's stacked slice",
+                                  sliced)):
                 if not grids_equal(grids, other):
                     raise AssertionError(f"camera {i}: the {which} differs "
                                          f"from the {what}")
@@ -2143,8 +2123,9 @@ def phase_pipeline(camera):
         n_tiles = (scratch.numel() - 3) // 4
         entries = int(scratch[2 * n_tiles])
         busy = int((scratch[:n_tiles] > 0).sum())
-        log(f"pipeline camera {i}: tiled kernel and the voxelizer's stacked "
-            f"slice bitwise equal to the walk kernel, the plain walk (card; CPU one call {cpu_walk_s:.1f} s) "
+        log(f"pipeline camera {i}: tiled kernel and the carve route's "
+            f"stacked slice bitwise equal to the plain walk (card; CPU one "
+            f"call {cpu_walk_s:.1f} s) "
             f"and the plain column carve (run_axis={axis!r}, one call "
             f"{cols_s * 1e3:.1f} ms); filled marks {filled} = finite "
             f"unclipped in-grid rays; free marks {int(got.seen_free.sum())};"
@@ -2155,7 +2136,7 @@ def phase_pipeline(camera):
         plain_filled.append(ref.seen_filled)
         if first is None:
             first = setup
-        del got, sliced, ref, walk, plain, cpu_walk, setup
+        del got, sliced, ref, plain, cpu_walk, setup
     del stacked
     fused = fusion_filter.combine_and_filter_plain(
         voxelize.FilterOptions(), torch.stack(plain_free),
@@ -2165,23 +2146,20 @@ def phase_pipeline(camera):
                              "the plain filter of the plain grids")
     del plain_free, plain_filled, fused
 
-    # Both kernels at the main path's shape (camera 0), each a carve into
-    # fresh 512^3 grids, in turns; each against its plain version on the
-    # same setup; the bound.
+    # The tiled kernel at the main path's shape (camera 0), a carve into
+    # fresh 512^3 grids, against its plain version on the same setup; the
+    # bound.
     visits = carve.count_visits(spec.counts, first, n_steps)
-    times = in_turns(carve_kernels(carve, spec, first, n_steps), 10)
-    plain_ms = {
-        "carve_walk": cuda_ms(carve_fn(spec, first, n_steps,
-                                       carve.carve_plain), 1),
-        "carve_tiled": cuda_ms(carve_fn(spec, first, n_steps,
-                                        carve.carve_tiled_plain,
-                                        zero=False), 1)}
+    tiled = carve_fn(spec, first, n_steps, carve.carve_tiled, zero=False)
+    times = {"carve_tiled": [cuda_ms(tiled, 10) for _ in range(2)]}
+    plain_ms = {"carve_tiled": cuda_ms(carve_fn(
+        spec, first, n_steps, carve.carve_tiled_plain, zero=False), 1)}
     bound_ms, bound_by = carve_bound(spec, first, visits)
     n_rays = first.hit.shape[0]
     rows = {}
     for kname, ms_turns in times.items():
         ms = float(np.mean(ms_turns))
-        log(f"{kname}, pipeline camera 0: {ms_turns} ms in turns = "
+        log(f"{kname}, pipeline camera 0: {ms_turns} ms (twice) = "
             f"{n_rays / (ms / 1e3):.4e} rays/s, {visits} visits "
             f"({visits / (ms / 1e3):.4e} visits/s); plain version "
             f"{plain_ms[kname]:.1f} ms; bound {bound_ms:.4f} ms by "
@@ -4289,11 +4267,10 @@ def main():
             "bound_by": probe_bounds[kname][1],
             "library_ms": probe_library_ms[kname],
         })
-    # The carve kernels: the pipeline's launches (the walk kernel is kept
-    # to be timed and checked against, so none); each one's time, its plain
+    # The carve kernel: the pipeline's launches; its time, its plain
     # version's and the bound on the pipeline's first camera at 512^3. Every
-    # comparison of them is bitwise (a difference raises). No single
-    # PyTorch call computes the walk.
+    # comparison of it is bitwise (a difference raises). No single PyTorch
+    # call computes the walk.
     for kname, row in carve_rows.items():
         kernels.append({
             "name": kname, "route": "cuda", "source": CSRC + "carve.cu",

@@ -4,7 +4,7 @@ each segment re-walked from its saved state, both grids written in full)
 against the plain walk and the JAX package's walk run op by op, bit for bit,
 on small tiles that cut the rays many times; the tiled kernel's bound on
 its list entries; the voxelizers' carve into one stacked pair; and, on a
-card, the tiled kernel against the plain walk and the walk kernel.
+card, the tiled kernel against the plain walk.
 
 The JAX package runs op by op (``jax.disable_jit()``), as in
 ``test_torch_voxelize.py``: its compiled walk contracts ``a * b + c`` into
@@ -277,10 +277,9 @@ def test_stacked_pair_matches_fresh_grids():
 @pytest.mark.cuda
 def test_cuda_tiled_kernel_matches_plain_and_walk():
     """On the card: the tiled kernel (every tile shape here, the default
-    included) against the plain walk on the CPU, the tiled model and the
-    walk kernel, bitwise, over grids of garbage, an empty cloud included;
-    raycast_pointcloud launches it once a cloud and the walk kernel never,
-    into fresh grids and into a slice of a stacked pair."""
+    included) against the plain walk on the CPU, bitwise, over grids of
+    garbage, an empty cloud included; raycast_pointcloud launches it once
+    a cloud, into fresh grids and into a slice of a stacked pair."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     for name, case in list(CASES.items()) + [("empty", _empty)]:
@@ -295,10 +294,6 @@ def test_cuda_tiled_kernel_matches_plain_and_walk():
             want_filled = torch.zeros_like(want_free)
             carve.carve_plain(tspec.counts, host, n_steps, want_free,
                               want_filled)
-            walk_free = want_free.cuda().zero_()
-            walk_filled = torch.zeros_like(walk_free)
-            carve.carve_kernel(tspec.counts, dev, n_steps, walk_free,
-                               walk_filled)
             for tile in TILES + [carve.TILE]:
                 free = torch.full((tspec.num_total,), GARBAGE,
                                   dtype=torch.int32, device="cuda")
@@ -308,10 +303,8 @@ def test_cuda_tiled_kernel_matches_plain_and_walk():
                                   tile)
                 torch.cuda.synchronize()
                 assert carve.launches_tiled == before + 1
-                for ref_free, ref_filled in ((want_free, want_filled),
-                                             (walk_free, walk_filled)):
-                    assert torch.equal(free.cpu(), ref_free.cpu()), name
-                    assert torch.equal(filled.cpu(), ref_filled.cpu()), name
+                assert torch.equal(free.cpu(), want_free), name
+                assert torch.equal(filled.cpu(), want_filled), name
         cuda_cloud = interop.pointcloud_from_numpy(
             np.asarray(cloud.points), np.asarray(cloud.origin_transform),
             np.asarray(cloud.max_range), device="cuda")
@@ -320,11 +313,10 @@ def test_cuda_tiled_kernel_matches_plain_and_walk():
                    for _ in range(2)]
         ref = tv.raycast_pointcloud(tspec, _tmat(origin), _tcloud(cloud))
         for out in (None, tv.TrackingGrid(stacked[0][1], stacked[1][1])):
-            walks, tiled = carve.launches, carve.launches_tiled
+            tiled = carve.launches_tiled
             got = tv.raycast_pointcloud(tspec, _tmat(origin).cuda(),
                                         cuda_cloud, _out=out)
-            assert (carve.launches, carve.launches_tiled) == (walks,
-                                                              tiled + 1)
+            assert carve.launches_tiled == tiled + 1
             assert torch.equal(got.seen_free.cpu(), ref.seen_free), name
             assert torch.equal(got.seen_filled.cpu(), ref.seen_filled), name
         for g in stacked:

@@ -389,7 +389,7 @@ def test_filter_options_validation():
 
 
 def test_kernel_raises_off_the_card():
-    """The kernel's wrapper and the walk's kernel backend refuse CPU
+    """The tiled kernel's wrapper and the walk's kernel backend refuse CPU
     tensors: nothing falls back to the plain walk."""
     spec, origin, cloud = SCENES["inside"]()
     tspec, tcloud = _tspec(spec), _tcloud(cloud)
@@ -397,10 +397,10 @@ def test_kernel_raises_off_the_card():
         tv.raycast_pointcloud(tspec, _tmat(origin), tcloud, backend="cuda")
     setup = tv.ray_setup(tspec, _tmat(origin), tcloud)
     grid = torch.zeros(tspec.num_total, dtype=torch.int32)
-    before = carve.launches
+    before = carve.launches_tiled
     with pytest.raises(ValueError, match="CUDA"):
-        carve.carve_kernel(tspec.counts, setup, 64, grid, grid.clone())
-    assert carve.launches == before
+        carve.carve_tiled(tspec.counts, setup, 64, grid, grid.clone())
+    assert carve.launches_tiled == before
     with pytest.raises(ValueError, match="Unknown carve backend"):
         tv.raycast_pointcloud(tspec, _tmat(origin), tcloud, backend="bogus")
     non_uniform = GridSpec.from_voxel_sizes((0.1, 0.2, 0.1), (4, 4, 4))

@@ -1,25 +1,23 @@
 """Pointcloud carve, the voxel walk of every ray of a cloud counted into
-int32 tracking grids: the CUDA kernels of ``csrc/carve.cu`` and their plain
+int32 tracking grids: the CUDA kernel of ``csrc/carve.cu`` and its plain
 PyTorch versions.
 
 All take the per-ray setup as a :class:`RaySetup` (made by
 ``ops/voxelize.py::_ray_visits`` from ``_prepare_rays``) and walk each ray
 for at most ``n_steps`` steps: one count per visited voxel into
 ``seen_free``, and the endpoint into ``seen_filled`` (or ``seen_free``
-where the ray was range-clipped). The kernels replace no TPU kernel: the
+where the ray was range-clipped). The kernel replaces no TPU kernel: the
 JAX package carves with XLA scatters inside while-loops
 (``voxelized_geometry_tools_tpu/ops/voxelize.py::raycast_pointcloud``).
 
-* :func:`carve_tiled` (the carve of ``raycast_pointcloud`` on the card):
-  rays binned into grid tiles, each tile counted in shared memory and both
+* :func:`carve_tiled` (the carve of every fusion path on the card): rays
+  binned into grid tiles, each tile counted in shared memory and both
   grids written in full, zeros included; its four passes are one launch,
-  counted in ``launches_tiled``. Its plain version :func:`carve_tiled_plain` cuts the
-  walks into per-tile segments the same way and re-walks each from its
-  saved state.
-* :func:`carve_kernel` (``carve_walk``, the first design, kept to be
-  timed and checked against): one thread per ray, one device-memory atomic
-  per visit, adding into grids the caller zeroed; counted in ``launches``.
-  Its plain version is :func:`carve_plain`.
+  counted in ``launches_tiled``. Its plain version
+  :func:`carve_tiled_plain` cuts the walks into per-tile segments the same
+  way and re-walks each from its saved state.
+* :func:`carve_plain` is the walk itself, one step of every ray at a
+  time, adding into grids the caller zeroed.
 
 Integer adds commute, so every version gives the plain walk's bits.
 """
@@ -36,13 +34,11 @@ from . import build
 
 Tensor = torch.Tensor
 
-__all__ = ["RaySetup", "TILE", "carve_kernel", "carve_plain", "carve_tiled",
+__all__ = ["RaySetup", "TILE", "carve_plain", "carve_tiled",
            "carve_tiled_plain", "count_entries", "count_visits",
            "segment_steps", "tile_shape"]
 
-# Launches of the walk kernel (carve_walk) and of the tiled kernel (one a
-# carve, its four passes together).
-launches = 0
+# Launches of the tiled kernel (one a carve, its four passes together).
 launches_tiled = 0
 
 # The tiled kernel's tile extents (x, y, z), cut to the grid where it is
@@ -151,8 +147,7 @@ def carve_plain(counts: Tuple[int, int, int], setup: RaySetup,
 
 def count_visits(counts: Tuple[int, int, int], setup: RaySetup,
                  n_steps: int) -> int:
-    """How many voxel visits the walk makes (the kernel's atomics, besides
-    one per marked endpoint), by the plain walk."""
+    """How many voxel visits the walk makes, by the plain walk."""
     total = [0]
 
     def on_visit(flat):
@@ -337,10 +332,6 @@ def carve_tiled_plain(counts: Tuple[int, int, int], setup: RaySetup,
 @functools.cache
 def _library():
     lib = build.load_library("carve")
-    lib.carve_walk_launch.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 4
-        + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
-    lib.carve_walk_launch.restype = ctypes.c_int
     lib.carve_tiled_launch.argtypes = (
         [ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 7
         + [ctypes.c_void_p] * 2 + [ctypes.c_longlong]
@@ -379,28 +370,6 @@ def _check(setup: RaySetup, seen_free: Tensor, seen_filled: Tensor,
                 or tuple(g.shape) != (n_total,) or not g.is_contiguous()):
             raise ValueError(f"carve kernel: {name} must be a contiguous "
                              f"int32 [{n_total}] tensor on {setup.hit.device}")
-
-
-def carve_kernel(counts: Tuple[int, int, int], setup: RaySetup,
-                 n_steps: int, seen_free: Tensor, seen_filled: Tensor) -> None:
-    """One launch of the kernel (built at first use) on the current stream,
-    without synchronizing: as :func:`carve_plain`, for CUDA tensors only."""
-    global launches
-    nx, ny, nz = counts
-    _check(setup, seen_free, seen_filled, nx * ny * nz)
-    if nx * ny * nz >= 2 ** 31:
-        raise ValueError(f"grid {counts} has 2^31 voxels or more")
-    dev = setup.hit.device
-    err = _library().carve_walk_launch(
-        setup.start.data_ptr(), setup.final.data_ptr(),
-        setup.step.data_ptr(), setup.t0.data_ptr(), setup.dt.data_ptr(),
-        setup.hit.data_ptr(), setup.end_flat.data_ptr(),
-        setup.end_filled.data_ptr(), setup.hit.shape[0], nx, ny, nz,
-        int(n_steps), seen_free.data_ptr(), seen_filled.data_ptr(),
-        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"carve kernel launch failed (cudaError_t {err})")
-    launches += 1
 
 
 def tile_smem_bytes(tile: Tuple[int, int, int]) -> int:

@@ -1,35 +1,22 @@
-"""The carve's scenes, and the carve kernels' times on one CUDA card as one
-JSON line.
+"""The carve's scenes, and the tiled carve kernel's times on one CUDA card
+as one JSON line.
 
     python -m voxelized_geometry_tools_tpu_torch.kernels.carve_timings LABEL
 
 prints ``CARVE_TIMINGS {...}``: on the 512^3 pipeline's first camera
 (307,200 rays looking +z), on ``bench.py``'s config2 cloud and on the
-oblique cloud at 128^3, the time of
-
-* ``zero``: zeroing both int32 grids (``Tensor.zero_``), as a caller of the
-  walk kernel must before it;
-* ``walk``: the walk kernel (``carve.carve_kernel``) alone, on grids that
-  are already zeroed (its atomics add into them);
-* ``walk_count``: the same walk with each visit's atomic replaced by a
-  count in a register (one store a ray), a variant built here from the
-  text of ``csrc/carve.cu`` and nowhere else: the walk's own cost;
-* ``walk_fresh``: zeroing and the walk, the carve into fresh grids;
-* where the tree has it, ``tiled``: the tiled kernel (``carve.carve_tiled``,
-  every pass, fresh grids it writes in full), its first 1, 2, 3 and 4
-  passes queued behind a spin of the card (``probes.queued_ms``), its list
-  entries, its variants (``TILED_VARIANTS``) in turns, and each tile-pass
-  work item's cycles;
-
-with the visits, the card's name and power limit; with ``--sweep``, the
-tiled kernel on every pipeline camera, config2 and the oblique cloud for
-each tile shape and tile-pass setting of ``SWEEP_TILES`` x
-``SWEEP_SETTINGS``, each result checked bitwise against the walk kernel's.
-Pass prefixes, variants and settings are builds of ``csrc/carve.cu``'s
-text with a few edits (:func:`build_variant`). It calls only entry
-points that every version of the port since the carve kernel has (the
-tiled kernel only where it exists), so two commits compare in one call on
-one card: unpack the other commit's tree (``git archive REV | tar x -C
+oblique cloud at 128^3, the time of the tiled kernel
+(``carve.carve_tiled``, every pass, fresh grids it writes in full), its
+first 1, 2, 3 and 4 passes queued behind a spin of the card
+(``probes.queued_ms``), its list entries, its variants
+(``TILED_VARIANTS``) in turns, and each tile-pass work item's cycles; with
+the visits, the card's name and power limit. With ``--sweep``, the tiled
+kernel on every pipeline camera, config2 and the oblique cloud for each
+tile shape and tile-pass setting of ``SWEEP_TILES`` x ``SWEEP_SETTINGS``,
+each result checked bitwise against the default kernel's. Pass prefixes,
+variants and settings are builds of ``csrc/carve.cu``'s text with a few
+edits (:func:`build_variant`). Two commits compare in one call on one
+card: unpack the other commit's tree (``git archive REV | tar x -C
 _scratch/parent``) and run, in turns from each tree's root, ``python3 -c
 "$(cat <this file>)" LABEL``. ``chip_smoke.py`` takes its carve scenes from
 here.
@@ -142,15 +129,6 @@ def scenes(device):
             ("oblique (1, 1, 1)", small, oblique_cloud(device))]
 
 
-# The register-count variant of the walk kernel: each visit's atomic
-# becomes a count, stored once a ray (into seen_filled[r], so the walk is
-# not optimized away).
-_COUNT_EDITS = (
-    ("int kx = 0, ky = 0, kz = 0;", "int kx = 0, ky = 0, kz = 0, count = 0;"),
-    ("atomicAdd(seen_free + (cx * nyz + cy * nz + cz), 1);", "++count;"),
-    ("      ++kz;\n    }\n  }\n}", "      ++kz;\n    }\n  }\n"
-     "  seen_filled[r] = count;\n}"),
-)
 # Variants of the tiled kernel's tile pass, for its split (their grids are
 # wrong except lb3's): "no_atomics" counts a segment's visits in a register
 # and adds them once; "no_walk" adds one a segment and walks nothing;
@@ -234,11 +212,10 @@ def build_variant(name, edits):
                     str(src)], check=True, capture_output=True)
     lib = ctypes.CDLL(str(out))
     real = carve._library()
-    for fn in ("carve_walk_launch", "carve_tiled_launch",
-               "carve_tile_smem_bytes", "carve_tile_chunk"):
-        if hasattr(real, fn):
-            getattr(lib, fn).argtypes = getattr(real, fn).argtypes
-            getattr(lib, fn).restype = getattr(real, fn).restype
+    for fn in ("carve_tiled_launch", "carve_tile_smem_bytes",
+               "carve_tile_chunk"):
+        getattr(lib, fn).argtypes = getattr(real, fn).argtypes
+        getattr(lib, fn).restype = getattr(real, fn).restype
     return lib
 
 
@@ -309,45 +286,23 @@ def variant_times(spec, setup, n_steps, reps=10) -> dict:
     return out
 
 
-def carve_times(spec, cloud, count_lib, reps=20) -> dict:
+def carve_times(spec, cloud, reps=20) -> dict:
     eye = torch.eye(4, device="cuda")
     setup = voxelize.ray_setup(spec, eye, cloud)
     n_steps = carve.segment_steps(sum(spec.counts) + 2)
-    free = torch.zeros(spec.num_total, dtype=torch.int32, device="cuda")
-    filled = torch.zeros_like(free)
+    free = torch.empty(spec.num_total, dtype=torch.int32, device="cuda")
+    filled = torch.empty_like(free)
+
+    def tiled():
+        carve.carve_tiled(spec.counts, setup, n_steps, free, filled)
+
     out = {"rays": setup.hit.shape[0],
-           "visits": carve.count_visits(spec.counts, setup, n_steps)}
-
-    def zero():
-        free.zero_()
-        filled.zero_()
-
-    def walk():
-        carve.carve_kernel(spec.counts, setup, n_steps, free, filled)
-
-    def walk_count():
-        with using_library(count_lib):
-            walk()
-
-    def fresh():
-        zero()
-        walk()
-
-    fns = {"zero": zero, "walk": walk, "walk_count": walk_count,
-           "walk_fresh": fresh}
-    tiled = getattr(carve, "carve_tiled", None)
-    if tiled is not None:
-        fns["tiled"] = lambda: tiled(spec.counts, setup, n_steps, free,
-                                     filled)
-    # In turns: each function twice, the second round in reverse order.
-    order = list(fns) + list(reversed(fns))
-    for name in order:
-        out.setdefault(name + "_ms", []).append(cuda_ms(fns[name], reps))
-    if tiled is not None:
-        out["tiled_queued_ms"] = queued_ms(fns["tiled"], reps)
-        out.update(tiled_passes(spec, setup, n_steps, free, filled, reps))
-        out.update(variant_times(spec, setup, n_steps))
-        out["items"] = item_stats(spec, setup, n_steps)
+           "visits": carve.count_visits(spec.counts, setup, n_steps),
+           "tiled_ms": [cuda_ms(tiled, reps) for _ in range(2)],
+           "tiled_queued_ms": queued_ms(tiled, reps)}
+    out.update(tiled_passes(spec, setup, n_steps, free, filled, reps))
+    out.update(variant_times(spec, setup, n_steps))
+    out["items"] = item_stats(spec, setup, n_steps)
     return out
 
 
@@ -385,7 +340,7 @@ SWEEP_SETTINGS = ((512, 2048), (512, 4096), (512, 16384), (1024, 4096),
 def sweep(reps=10) -> dict:
     """The tiled kernel on every pipeline camera, config2 and the oblique
     cloud for each tile shape and tile-pass setting, each result checked
-    bitwise against the walk kernel's."""
+    bitwise against the default kernel's."""
     out = {}
     big = GridSpec.from_voxel_counts(PIPE_RES, (PIPE_N,) * 3)
     small = GridSpec.from_voxel_counts(CARVE_RES, (CARVE_N,) * 3)
@@ -399,9 +354,9 @@ def sweep(reps=10) -> dict:
     for name, spec, cloud in cases:
         setup = voxelize.ray_setup(spec, eye, cloud)
         n_steps = carve.segment_steps(sum(spec.counts) + 2)
-        want = [torch.zeros(spec.num_total, dtype=torch.int32,
+        want = [torch.empty(spec.num_total, dtype=torch.int32,
                             device="cuda") for _ in range(2)]
-        carve.carve_kernel(spec.counts, setup, n_steps, *want)
+        carve.carve_tiled(spec.counts, setup, n_steps, *want)
         got = [torch.empty_like(want[0]) for _ in range(2)]
         row = {}
         for tile in SWEEP_TILES:
@@ -415,7 +370,7 @@ def sweep(reps=10) -> dict:
                             and torch.equal(got[1], want[1])):
                         raise AssertionError(
                             f"{name} {tile} t{threads} c{chunk}: the tiled "
-                            "kernel differs from the walk")
+                            "kernel differs from the default one")
                     row[f"{tile} t{threads} c{chunk}"] = cuda_ms(
                         lambda: carve._launch_tiled(
                             spec.counts, setup, n_steps, *got, tile), reps)
@@ -432,10 +387,9 @@ def main(label: str) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("carve_timings: no CUDA device")
     out = {"label": label}
-    count_lib = build_variant("count", _COUNT_EDITS)
     with torch.no_grad():
         for name, spec, cloud in scenes("cuda"):
-            out[name] = carve_times(spec, cloud, count_lib)
+            out[name] = carve_times(spec, cloud)
         if "--sweep" in sys.argv:
             out["sweep"] = sweep()
 

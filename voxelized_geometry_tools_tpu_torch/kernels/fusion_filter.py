@@ -9,9 +9,10 @@ rule; a static cell above 0.5 is kept, any other becomes 1.0 if some
 camera saw it filled, 0.0 if at least ``num_cameras_seen_free`` cameras saw
 it free, else 0.5. The kernel replaces no TPU kernel: the JAX package fuses
 with XLA elementwise operations, which the plain version repeats
-(``ops/voxelize.py::counts_seen_as`` and its votes). The kernel reads each
-input once and writes the result once, and gives the plain version's bits
-for any counters and any occupancy, NaN included (the source says how).
+(:func:`counts_seen_as`, which ``ops/voxelize.py`` re-exports, and its
+votes). The kernel reads each input once and writes the result once, and
+gives the plain version's bits for any counters and any occupancy, NaN
+included (the source says how).
 
 :func:`combine_and_filter_fused` launches the kernel for a CUDA tensor and
 takes the plain version only for a CPU tensor; ``launches`` counts the
@@ -21,11 +22,13 @@ launches.
 from __future__ import annotations
 
 import ctypes
+import enum
 import functools
 import operator
 
 import torch
 
+from ..core.constants import constant
 from . import build
 
 Tensor = torch.Tensor
@@ -46,13 +49,45 @@ def _library():
     return lib
 
 
+class SeenAs(enum.IntEnum):
+    """pointcloud_voxelization_interface.hpp:18."""
+    UNKNOWN = 0
+    FILLED = 1
+    FREE = 2
+
+
+def _f32(x, device) -> Tensor:
+    return constant(x, torch.float32, device)
+
+
+def counts_seen_as(options, seen_free: Tensor,
+                   seen_filled: Tensor) -> Tensor:
+    """Vectorized ``CountsSeenAs`` voting rule (hpp:55-86); int8 SeenAs
+    codes."""
+    dev = seen_free.device
+    i8 = torch.int8
+    filtered_filled = torch.where(
+        seen_filled >= options.outlier_points_threshold, seen_filled,
+        torch.zeros_like(seen_filled))
+    both = (seen_free > 0) & (filtered_filled > 0)
+    pct = seen_free.to(torch.float32) / torch.maximum(
+        (seen_free + filtered_filled).to(torch.float32), _f32(1.0, dev))
+    free = constant(int(SeenAs.FREE), i8, dev)
+    filled = constant(int(SeenAs.FILLED), i8, dev)
+    unknown = constant(int(SeenAs.UNKNOWN), i8, dev)
+    both_result = torch.where(
+        pct >= _f32(float(options.percent_seen_free), dev), free, filled)
+    return torch.where(
+        both, both_result,
+        torch.where(seen_free > 0, free,
+                    torch.where(filtered_filled > 0, filled, unknown)))
+
+
 def combine_and_filter_plain(options, seen_free: Tensor, seen_filled: Tensor,
                              occupancy: Tensor) -> Tensor:
-    """The plain version, on any device: ``counts_seen_as``'s int8 codes,
-    each camera's votes summed, then the fuse, as whole-grid PyTorch
+    """The plain version, on any device: :func:`counts_seen_as`'s int8
+    codes, each camera's votes summed, then the fuse, as whole-grid PyTorch
     operations."""
-    from ..ops.voxelize import SeenAs, _f32, counts_seen_as
-
     dev = occupancy.device
     seen = counts_seen_as(options, seen_free, seen_filled)
     cameras_filled = (seen == SeenAs.FILLED).to(torch.int32).sum(

@@ -13,12 +13,11 @@ and consumers query the refreshed SDF:
 * ``localize`` fits a camera pose against the live SDF through the
   differentiable renderer.
 
-The carve route depends on the device. On the CPU the mapper carves as the
-JAX package does: the column carve on the run axis (picked from the first
-frame's dominant ray direction unless given), or the voxel walk for
-``carve_run_axis=-1``. On the CUDA card it always carves with
-:func:`..ops.voxelize.raycast_pointcloud`, whose ``"auto"`` backend there is
-the tiled carve kernel: the port's column carve is plain PyTorch, many
+A frame is the voxelizers' fusion step with one cloud. On the CPU the
+mapper carves as the JAX package does: the column carve on the run axis
+(picked from the first frame's dominant ray direction unless given), or the
+voxel walk for ``carve_run_axis=-1``. On the CUDA card it always carves
+with the tiled carve kernel: the port's column carve is plain PyTorch, many
 times slower on the card, and both carves give the same bits. A kernel that
 fails to build or launch raises; nothing falls back.
 """
@@ -32,7 +31,6 @@ import torch
 from ..core.grid import GridSpec
 from ..core.maps import OccupancyMap, SignedDistanceField
 from ..ops import edt, render, voxelize
-from ..utils.profiling import _span
 
 Tensor = torch.Tensor
 
@@ -80,21 +78,13 @@ class OnlineMapper:
 
     def _integrate_one(self, occupancy: Tensor,
                        cloud: voxelize.PointCloud) -> Tensor:
-        spec, origin = self._map.spec, self._map.origin_transform
         if cloud.points.device != occupancy.device:
             raise ValueError(f"a cloud lies on {cloud.points.device}, the "
                              f"map on {occupancy.device}")
-        with _span("fusion"):
-            if occupancy.device.type == "cuda" or self._run_axis < 0:
-                grid = voxelize.raycast_pointcloud(spec, origin, cloud,
-                                                   self._max_steps)
-            else:
-                grid = voxelize.raycast_pointcloud_columns(
-                    spec, origin, cloud, self._max_steps,
-                    run_axis=self._run_axis)
-            return voxelize.combine_and_filter(
-                self._options, grid.seen_free[None], grid.seen_filled[None],
-                occupancy)
+        axis = None if self._run_axis < 0 else self._run_axis
+        return voxelize._carve_and_filter(
+            self._map.spec, self._map.origin_transform, [cloud],
+            self._options, occupancy, self._max_steps, run_axes=(axis,))
 
     def _set_occupancy(self, occupancy: Tensor, frames: int) -> OccupancyMap:
         self._map = self._map.replace(occupancy=occupancy)

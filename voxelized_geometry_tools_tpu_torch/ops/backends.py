@@ -24,11 +24,9 @@ import torch
 from ..core import transforms
 from ..core.device import default_device
 from ..core.maps import OccupancyMap
-from ..utils.profiling import _span
-from .voxelize import (FilterOptions, PointCloud, TrackingGrid,
-                       VoxelizerRuntime, combine_and_filter, pick_run_axis,
-                       raycast_pointcloud, raycast_pointcloud_columns,
-                       stacked_grids, voxelize_pointclouds)
+from .voxelize import (FilterOptions, PointCloud, VoxelizerRuntime,
+                       _carve_and_filter, pick_run_axis,
+                       voxelize_pointclouds)
 
 LoggingFunction = Optional[Callable[[str], None]]
 
@@ -123,41 +121,6 @@ class AcceleratorPointCloudVoxelizer:
         if logging_fn:
             logging_fn(f"AcceleratorPointCloudVoxelizer on {name}")
 
-    def _pick_run_axes(self, pointclouds, grid_origin_transform):
-        """Per-cloud carve on the CPU: the column carve along the bundle's
-        dominant axis (or ``"split"`` for oblique bundles) for real-size
-        clouds, the walk (None) for tiny ones."""
-        return tuple(
-            pick_run_axis(cloud, grid_origin_transform)
-            if self._use_columns and cloud.points.shape[0] >= 4096 else None
-            for cloud in pointclouds)
-
-    def _carve(self, spec, origin_transform, pointclouds):
-        """The stacked ``[C, nx, ny, nz]`` counters of the clouds."""
-        if self.device.type == "cuda":
-            # The tiled kernel writes each cloud's slice in full.
-            seen_free, seen_filled = stacked_grids(spec, len(pointclouds),
-                                                   self.device)
-            for i, cloud in enumerate(pointclouds):
-                raycast_pointcloud(
-                    spec, origin_transform, cloud, self._max_steps,
-                    backend="cuda",
-                    _out=TrackingGrid(seen_free[i], seen_filled[i]))
-            return seen_free, seen_filled
-        grids = []
-        for cloud, axis in zip(pointclouds, self._pick_run_axes(
-                pointclouds, origin_transform)):
-            if axis is None:
-                grids.append(raycast_pointcloud(
-                    spec, origin_transform, cloud, self._max_steps,
-                    ray_chunk=self._ray_chunk, backend="plain"))
-            else:
-                grids.append(raycast_pointcloud_columns(
-                    spec, origin_transform, cloud, self._max_steps,
-                    ray_chunk=self._ray_chunk, run_axis=axis))
-        return (torch.stack([g.seen_free for g in grids]),
-                torch.stack([g.seen_filled for g in grids]))
-
     def voxelize_pointclouds(self, static_environment: OccupancyMap,
                              filter_options: FilterOptions,
                              pointclouds: Sequence[PointCloud],
@@ -174,27 +137,18 @@ class AcceleratorPointCloudVoxelizer:
                                         max_steps=self._max_steps)
         spec = static_environment.spec
         spec.enforce_uniform_voxel_size()
-        timed = runtime_log_fn is not None
-        with _span("fusion"):
-            t0 = time.monotonic()
-            seen_free, seen_filled = self._carve(
-                spec, static_environment.origin_transform, pointclouds)
-            if timed:
-                _sync(self.device)
-            t1 = time.monotonic()
-            occupancy = combine_and_filter(filter_options, seen_free,
-                                           seen_filled,
-                                           static_environment.occupancy)
-            if timed:
-                _sync(self.device)
-                runtime_log_fn(VoxelizerRuntime(t1 - t0,
-                                                time.monotonic() - t1))
+        origin = static_environment.origin_transform
+        run_axes = None  # the card carves every cloud with the tiled kernel
+        if self.device.type != "cuda":
+            run_axes = tuple(
+                pick_run_axis(cloud, origin)
+                if self._use_columns and cloud.points.shape[0] >= 4096
+                else None for cloud in pointclouds)
+        occupancy = _carve_and_filter(
+            spec, origin, pointclouds, filter_options,
+            static_environment.occupancy, self._max_steps, self._ray_chunk,
+            run_axes, runtime_log_fn)
         return static_environment.replace(occupancy=occupancy)
-
-
-def _sync(device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def _numpy(x, dtype) -> np.ndarray:

@@ -15,6 +15,9 @@ Port of ``voxelized_geometry_tools_tpu/ops/voxelize.py``, eagerly:
   hand-written kernel ``kernels/csrc/fusion_filter.cu``, one launch; on a
   CPU tensor its plain PyTorch version).
 
+Every mapping path carves by :func:`_carve_cloud` and fuses by
+:func:`_carve_and_filter`.
+
 Every carve gives the same bits: the setup (:func:`_prepare_rays`) and the
 walk's closed-form crossing times are the JAX package's expressions in its
 operation order, each operation rounded on its own. (Compiled XLA CPU code
@@ -29,7 +32,6 @@ each 64-step segment), whether any ray is still alive.
 from __future__ import annotations
 
 import dataclasses
-import enum
 import time
 from typing import Callable, NamedTuple, Optional, Sequence, Union
 
@@ -41,22 +43,16 @@ from ..core.constants import constant
 from ..core.device import default_device
 from ..core.grid import GridSpec
 from ..core.maps import OccupancyMap
-from ..kernels import carve as carve_kernels
+from ..kernels import carve
 from ..kernels import fusion_filter
 from ..kernels.carve import RaySetup, segment_steps
+from ..kernels.fusion_filter import SeenAs, counts_seen_as  # noqa: F401
 from ..utils.profiling import _span
 from .edt import _sqrt
 
 Tensor = torch.Tensor
 
 _INF = float("inf")
-
-
-class SeenAs(enum.IntEnum):
-    """pointcloud_voxelization_interface.hpp:18."""
-    UNKNOWN = 0
-    FILLED = 1
-    FREE = 2
 
 
 class FilterOptions(NamedTuple):
@@ -304,6 +300,28 @@ def _balanced_chunk(n_rays: int, ray_chunk: int) -> int:
 _WALK_BACKENDS = ("auto", "plain", "cuda")
 
 
+def _grids_out(spec: GridSpec, device,
+               out: Optional[TrackingGrid]) -> TrackingGrid:
+    """``out`` checked to be contiguous int32 grids of ``spec`` on
+    ``device``, or fresh uninitialized ones for None."""
+    if out is None:
+        return TrackingGrid(*(torch.empty(spec.counts, dtype=torch.int32,
+                                          device=device) for _ in range(2)))
+    for g in out:
+        if (g.shape != spec.counts or g.dtype != torch.int32
+                or g.device != device or not g.is_contiguous()):
+            raise ValueError(f"_out grids must be contiguous int32 "
+                             f"{spec.counts} tensors on {device}")
+    return out
+
+
+def _step_budget(spec: GridSpec, max_steps: Optional[int]) -> int:
+    """``max_steps`` (default ``nx + ny + nz + 2``) in whole segments."""
+    if max_steps is None:
+        max_steps = spec.num_x + spec.num_y + spec.num_z + 2
+    return segment_steps(max_steps)
+
+
 def raycast_pointcloud(spec: GridSpec, grid_origin_transform,
                        cloud: PointCloud,
                        max_steps: Optional[int] = None,
@@ -319,41 +337,22 @@ def raycast_pointcloud(spec: GridSpec, grid_origin_transform,
     ray (a CPU cloud raises), ``"plain"`` walks in PyTorch in ``ray_chunk``
     blocks, ``"auto"`` is the kernel for a CUDA cloud and the plain walk for
     a CPU one. All give the same bits. ``_out`` (internal): contiguous
-    int32 grids to carve into, written in full and returned (the voxelizers
-    pass each cloud's slice of one stacked pair)."""
+    int32 grids to carve into, written in full and returned (the carve
+    route passes each cloud's slice of one stacked pair)."""
     spec.enforce_uniform_voxel_size()
     if backend not in _WALK_BACKENDS:
         raise ValueError(f"Unknown carve backend {backend!r}")
-    if max_steps is None:
-        max_steps = spec.num_x + spec.num_y + spec.num_z + 2
-    n_steps = segment_steps(max_steps)
     dev = cloud.points.device
-    if backend == "auto":
-        backend = "plain" if dev.type == "cpu" else "cuda"
     if backend == "cuda" and dev.type != "cuda":
         raise ValueError(f"backend='cuda' needs a cloud on a CUDA device, "
                          f"got one on {dev}")
+    if backend != "plain":
+        return _carve_cloud(spec, grid_origin_transform, cloud, max_steps,
+                            ray_chunk, None, _out)
+    out = _grids_out(spec, dev, _out)
+    n_steps = _step_budget(spec, max_steps)
     n_rays = cloud.points.shape[0]
-    if _out is None:
-        out = TrackingGrid(*(torch.empty(spec.counts, dtype=torch.int32,
-                                         device=dev) for _ in range(2)))
-    else:
-        out = _out
-        for g in out:
-            if (g.shape != spec.counts or g.dtype != torch.int32
-                    or g.device != dev or not g.is_contiguous()):
-                raise ValueError(f"_out grids must be contiguous int32 "
-                                 f"{spec.counts} tensors on {dev}")
     free, filled = out.seen_free.view(-1), out.seen_filled.view(-1)
-    if backend == "cuda":
-        # The kernel takes every ray in one launch and writes both grids
-        # in full.
-        with _span("fusion.ray_setup"):
-            setup = ray_setup(spec, grid_origin_transform, cloud)
-        with _span("fusion.carve"):
-            carve_kernels.carve_tiled(spec.counts, setup, n_steps, free,
-                                      filled)
-        return out
     with _span("fusion.ray_setup"):
         X_GC = _grid_frame_transform(grid_origin_transform, cloud)
     free.zero_()
@@ -366,8 +365,40 @@ def raycast_pointcloud(spec: GridSpec, grid_origin_transform,
             setup = _ray_visits(spec, *_prepare_rays(
                 spec, X_GC, cloud.points[lo:lo + chunk], cloud.max_range))
         with _span("fusion.carve"):
-            carve_kernels.carve_plain(spec.counts, setup, n_steps, free,
-                                      filled)
+            carve.carve_plain(spec.counts, setup, n_steps, free, filled)
+    return out
+
+
+def _carve_cloud(spec: GridSpec, grid_origin_transform, cloud: PointCloud,
+                 max_steps: Optional[int], ray_chunk: int,
+                 run_axis: Union[None, int, str],
+                 out: Optional[TrackingGrid] = None) -> TrackingGrid:
+    """The carve route of every fusion path: one cloud into ``out`` (or
+    fresh grids). A CUDA cloud takes the setup and one tiled carve kernel
+    launch; a CPU cloud the column carve along ``run_axis``, or the plain
+    walk where it is None. All give the same bits."""
+    dev = cloud.points.device
+    if dev.type != "cuda":
+        if run_axis is None:
+            return raycast_pointcloud(spec, grid_origin_transform, cloud,
+                                      max_steps, ray_chunk=ray_chunk,
+                                      backend="plain", _out=out)
+        grid = raycast_pointcloud_columns(spec, grid_origin_transform, cloud,
+                                          max_steps, ray_chunk=ray_chunk,
+                                          run_axis=run_axis)
+        if out is None:
+            return grid
+        for dst, src in zip(_grids_out(spec, dev, out), grid):
+            dst.copy_(src)
+        return out
+    out = _grids_out(spec, dev, out)
+    # The kernel takes every ray in one launch and writes both grids in
+    # full.
+    with _span("fusion.ray_setup"):
+        setup = ray_setup(spec, grid_origin_transform, cloud)
+    with _span("fusion.carve"):
+        carve.carve_tiled(spec.counts, setup, _step_budget(spec, max_steps),
+                          out.seen_free.view(-1), out.seen_filled.view(-1))
     return out
 
 
@@ -837,8 +868,8 @@ def _raycast_columns_impl(spec: GridSpec, grid_origin_transform,
             hit & final_in, spec.flat_index(final_idx).to(torch.int32),
             minus_one)
         marked = endpoint_flat >= 0
-        carve_kernels._add_ones(free_pt, endpoint_flat[marked & clipped])
-        carve_kernels._add_ones(filled, endpoint_flat[marked & ~clipped])
+        carve._add_ones(free_pt, endpoint_flat[marked & clipped])
+        carve._add_ones(filled, endpoint_flat[marked & ~clipped])
     if use_diff:
         free_counts = _combine_diff_buckets(spec, free_acc).reshape(-1)
     else:
@@ -928,29 +959,6 @@ def raycast_single_point(spec: GridSpec, grid_origin_transform,
 # -- Fusion filter -----------------------------------------------------------
 
 
-def counts_seen_as(options: FilterOptions, seen_free: Tensor,
-                   seen_filled: Tensor) -> Tensor:
-    """Vectorized ``CountsSeenAs`` voting rule (hpp:55-86); int8 SeenAs
-    codes."""
-    dev = seen_free.device
-    i8 = torch.int8
-    filtered_filled = torch.where(
-        seen_filled >= options.outlier_points_threshold, seen_filled,
-        torch.zeros_like(seen_filled))
-    both = (seen_free > 0) & (filtered_filled > 0)
-    pct = seen_free.to(torch.float32) / torch.maximum(
-        (seen_free + filtered_filled).to(torch.float32), _f32(1.0, dev))
-    free = constant(int(SeenAs.FREE), i8, dev)
-    filled = constant(int(SeenAs.FILLED), i8, dev)
-    unknown = constant(int(SeenAs.UNKNOWN), i8, dev)
-    both_result = torch.where(
-        pct >= _f32(float(options.percent_seen_free), dev), free, filled)
-    return torch.where(
-        both, both_result,
-        torch.where(seen_free > 0, free,
-                    torch.where(filtered_filled > 0, filled, unknown)))
-
-
 def combine_and_filter(options: FilterOptions, seen_free: Tensor,
                        seen_filled: Tensor, occupancy: Tensor) -> Tensor:
     """Fuse stacked per-camera counters ``[C, nx, ny, nz]`` into occupancy
@@ -965,6 +973,43 @@ def combine_and_filter(options: FilterOptions, seen_free: Tensor,
             options, seen_free, seen_filled, occupancy)
 
 
+def _carve_and_filter(
+        spec: GridSpec, grid_origin_transform,
+        pointclouds: Sequence[PointCloud], filter_options: FilterOptions,
+        occupancy: Tensor, max_steps: Optional[int] = None,
+        ray_chunk: int = 16384,
+        run_axes: Optional[Sequence[Union[None, int, str]]] = None,
+        runtime_log_fn: Optional[Callable[[VoxelizerRuntime], None]] = None
+) -> Tensor:
+    """The fusion step of every mapping path, under one ``vgt.fusion``
+    span: each cloud carved by :func:`_carve_cloud` (along ``run_axes[i]``
+    on the CPU; None: the walk) into its slice of :func:`stacked_grids`,
+    then :func:`combine_and_filter` over ``occupancy``. A
+    ``runtime_log_fn`` gets the phases' wall times as a
+    ``VoxelizerRuntime``, the device synchronized after each; without one,
+    nothing waits for the device."""
+    dev = occupancy.device
+    if run_axes is None:
+        run_axes = (None,) * len(pointclouds)
+    timed = runtime_log_fn is not None
+    with _span("fusion"):
+        t0 = time.monotonic()
+        seen_free, seen_filled = stacked_grids(spec, len(pointclouds), dev)
+        for i, (cloud, axis) in enumerate(zip(pointclouds, run_axes)):
+            _carve_cloud(spec, grid_origin_transform, cloud, max_steps,
+                         ray_chunk, axis,
+                         TrackingGrid(seen_free[i], seen_filled[i]))
+        if timed:
+            _sync(dev)
+        t1 = time.monotonic()
+        fused = combine_and_filter(filter_options, seen_free, seen_filled,
+                                   occupancy)
+        if timed:
+            _sync(dev)
+            runtime_log_fn(VoxelizerRuntime(t1 - t0, time.monotonic() - t1))
+    return fused
+
+
 def voxelize_pointclouds(
         static_environment: OccupancyMap,
         filter_options: FilterOptions,
@@ -972,35 +1017,17 @@ def voxelize_pointclouds(
         runtime_log_fn: Optional[Callable[[VoxelizerRuntime], None]] = None,
         max_steps: Optional[int] = None) -> OccupancyMap:
     """End-to-end ``VoxelizePointClouds`` (pointcloud_voxelization_interface.
-    hpp:246-292): carve each cloud into its slice of one stacked pair of
-    tracking grids (:func:`raycast_pointcloud`: the tiled carve kernel for
-    clouds on a CUDA device), then fuse. Given a ``runtime_log_fn``, the
-    device is synchronized after each phase, so the ``VoxelizerRuntime``
-    given to it is the phases' wall time; without one, nothing waits for
-    the device."""
+    hpp:246-292): every cloud carved (the tiled carve kernel for clouds on
+    a CUDA device), then fused, by :func:`_carve_and_filter`, which times
+    the phases for a ``runtime_log_fn``."""
     filter_options.validate()
-    spec = static_environment.spec
     dev = static_environment.occupancy.device
-    timed = runtime_log_fn is not None
-
-    with _span("fusion"):
-        t0 = time.monotonic()
-        seen_free, seen_filled = stacked_grids(spec, len(pointclouds), dev)
-        for i, cloud in enumerate(pointclouds):
-            if cloud.points.device != dev:
-                raise ValueError(f"a cloud lies on {cloud.points.device}, "
-                                 f"the static environment on {dev}")
-            raycast_pointcloud(spec, static_environment.origin_transform,
-                               cloud, max_steps,
-                               _out=TrackingGrid(seen_free[i],
-                                                 seen_filled[i]))
-        if timed:
-            _sync(dev)
-        t1 = time.monotonic()
-        occupancy = combine_and_filter(filter_options, seen_free,
-                                       seen_filled,
-                                       static_environment.occupancy)
-        if timed:
-            _sync(dev)
-            runtime_log_fn(VoxelizerRuntime(t1 - t0, time.monotonic() - t1))
+    for cloud in pointclouds:
+        if cloud.points.device != dev:
+            raise ValueError(f"a cloud lies on {cloud.points.device}, "
+                             f"the static environment on {dev}")
+    occupancy = _carve_and_filter(
+        static_environment.spec, static_environment.origin_transform,
+        pointclouds, filter_options, static_environment.occupancy, max_steps,
+        runtime_log_fn=runtime_log_fn)
     return static_environment.replace(occupancy=occupancy)

@@ -252,11 +252,10 @@ def sharded_raycast_pointcloud(spec: GridSpec, grid_origin_transform,
     ``cloud`` is the whole cloud on every rank; its points are padded with
     ``inf`` (rays that mark nothing) to a multiple of the world size, and
     rank ``r`` walks the ``r``-th block of them (the JAX function's
-    ``P(axis)``). On a CUDA device the walk is the tiled carve kernel
-    (:func:`..ops.voxelize.raycast_pointcloud`); on the CPU ``run_axis``
-    picks the column carve's run axis (``"auto"``: from the cloud, which is
-    always concrete here; ``"split"``; 0-2) or the voxel walk (None), all
-    with the same bits.
+    ``P(axis)``), by the fusion paths' carve route: on a CUDA device the
+    tiled carve kernel; on the CPU ``run_axis`` picks the column carve's
+    run axis (``"auto"``: from the cloud, which is always concrete here;
+    ``"split"``; 0-2) or the voxel walk (None), all with the same bits.
 
     ``reduce``: ``"all"`` all-reduces the counters (every rank gets the
     whole fused grid, ``P()``); ``"scatter"`` reduce-scatters them along z
@@ -280,15 +279,8 @@ def sharded_raycast_pointcloud(spec: GridSpec, grid_origin_transform,
         points = torch.cat([points, points.new_full((pad, 3), float("inf"))])
     local = dataclasses.replace(
         cloud, points=shard(points, P(axis_name), n, mesh.rank, axis_name))
-    if run_axis is None or local.points.is_cuda:
-        grid = voxelize_ops.raycast_pointcloud(
-            spec, grid_origin_transform, local, max_steps=max_steps,
-            ray_chunk=ray_chunk)
-    else:
-        grid = voxelize_ops.raycast_pointcloud_columns(
-            spec, grid_origin_transform, local, max_steps=max_steps,
-            ray_chunk=ray_chunk,
-            run_axis=run_axis if run_axis == "split" else int(run_axis))
+    grid = voxelize_ops._carve_cloud(spec, grid_origin_transform, local,
+                                     max_steps, ray_chunk, run_axis)
     if reduce == "scatter":
         return voxelize_ops.TrackingGrid(
             coll.reduce_scatter(grid.seen_free, mesh, 2),
