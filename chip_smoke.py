@@ -8,7 +8,9 @@ EDT's seed kernel on masks of every kind and layout, with its launch count,
 its span's host waits and its 512^3 time against its byte bound; the
 fusion filter kernel at each benchmark cell's shape and on a ragged grid
 given unaligned and non-contiguous, with the same counts and its times
-against its byte bound), then
+against its byte bound; the EDT's signed combine kernel on the cells'
+fields in both types, each form and in place, with its launch count, its
+place right after the z pass and its times against its byte bound), then
 drives the main path at full size (512^3 two-field EDT -> corner table ->
 640x480 sphere-traced renders, the scene and camera of bench.py) and the
 differentiable ``entry()``, checking every result. Then it drives every
@@ -156,7 +158,7 @@ PROBES = {
                          probes.MARCH_STEPS * 256),
 }
 LIBRARIES = ("edt_bestfirst", "edt_envelope", "edt_windowed", "probes",
-             "carve", "edt_seed", "fusion_filter")
+             "carve", "edt_seed", "fusion_filter", "edt_combine")
 # The carve kernel replaces no TPU kernel: the JAX package carves with XLA
 # scatters in while-loops (raycast_pointcloud and its column twin).
 CARVE_REPLACES = "voxelized_geometry_tools_tpu/ops/voxelize.py:357"
@@ -173,6 +175,18 @@ FILTER_REPLACES = "voxelized_geometry_tools_tpu/ops/voxelize.py:1156"
 FILTER_SHAPES = ((1, (512, 512, 512)), (2, (512, 512, 512)),
                  (1, (1024, 1024, 512)))
 FILTER_RAGGED = (257, 129, 67)
+# Nor does the EDT's signed combine kernel: the JAX package combines with
+# XLA elementwise operations (sqrt, products and a difference).
+COMBINE_REPLACES = "voxelized_geometry_tools_tpu/ops/edt.py:229"
+# The combine kernel's checks and times at each cell's field: the map's and
+# the pair's dense 512^3 EDT (bench.py's sphere, its stacked [1024, 512,
+# 512] field), and the 6 mm room's streamed 1024 x 1024 x 512 EDT (a
+# centered sphere), whose two fields are combined in one pass.
+COMBINE_DENSE_N = 512
+COMBINE_ROOM_SHAPE = (1024, 1024, 512)
+# Float32 operations a voxel of the combine: two square roots, two
+# products, a difference.
+COMBINE_OPS = 5
 # Runtime calls that hold the host until the card has caught up (the ones
 # portbench/program_spans.py counts as host waits).
 BLOCKING_CALLS = frozenset(("cudaStreamSynchronize", "cudaDeviceSynchronize",
@@ -282,10 +296,11 @@ def staged_planned(kname, f):
 
 def reset_launches():
     from voxelized_geometry_tools_tpu_torch.kernels import (
-        carve, edt_seed, fusion_filter)
+        carve, edt_combine, edt_seed, fusion_filter)
     eb, ee, ew = kernel_modules()
     edt_seed.launches = 0
     fusion_filter.launches = 0
+    edt_combine.launches = 0
     eb.launches_staged = eb.launches_cluster = 0
     eb.launches = eb.launches_inkernel = 0
     ee.launches_staged = ee.launches = 0
@@ -295,10 +310,11 @@ def reset_launches():
 
 def read_launches():
     from voxelized_geometry_tools_tpu_torch.kernels import (
-        carve, edt_seed, fusion_filter)
+        carve, edt_combine, edt_seed, fusion_filter)
     eb, ee, ew = kernel_modules()
     return {"edt_seed": edt_seed.launches,
             "fusion_filter": fusion_filter.launches,
+            "edt_combine": edt_combine.launches,
             "carve_tiled": carve.launches_tiled,
             "edt_bestfirst_staged": eb.launches_staged,
             "edt_bestfirst_cluster": eb.launches_cluster,
@@ -337,7 +353,7 @@ def phase_build():
     eb, ee, ew = kernel_modules()
     from voxelized_geometry_tools_tpu_torch import native
     from voxelized_geometry_tools_tpu_torch.kernels import (
-        carve, edt_seed, fusion_filter)
+        carve, edt_combine, edt_seed, fusion_filter)
     t0 = time.monotonic()
     with ThreadPoolExecutor(len(LIBRARIES) + 1) as pool:
         # The native CPU runtime (g++) builds beside the CUDA sources.
@@ -351,6 +367,7 @@ def phase_build():
     carve._library()
     edt_seed._library()
     fusion_filter._library()
+    edt_combine._library()
     log(f"build: {', '.join(LIBRARIES)} and the native CPU runtime in "
         f"{time.monotonic() - t0:.2f} s (in parallel)")
     for name, path in zip(LIBRARIES, paths):
@@ -706,6 +723,118 @@ def phase_fusion_filter():
     return rows[0]
 
 
+def phase_edt_combine():
+    """The signed combine kernel bitwise against its plain version on real
+    EDT fields at each cell's shape: the 512^3 sphere's stacked field
+    (both types, each form) and the two fields of a 1024 x 1024 x 512
+    sphere (float32, out of place and in place over the first field, as the
+    streamed EDT takes it); one dense EDT launches it once, as the last
+    device operation after the z pass's envelope kernel (no copy before
+    it), and blocks the host nowhere in ``vgt.edt.combine``; its times
+    beside its byte bounds and the plain version's. Returns the 512^3
+    float32 row."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from voxelized_geometry_tools_tpu_torch.kernels import edt_combine
+    from voxelized_geometry_tools_tpu_torch.ops import edt
+
+    t_phase = time.monotonic()
+    n = COMBINE_DENSE_N
+    mask = sphere_mask(n, "cuda")
+    d = stacked_passes(mask)[3].contiguous()
+    fields = {f"{n}^3 dense": (d[:n], d[n:])}
+    room = torch.zeros(COMBINE_ROOM_SHAPE, dtype=torch.bool, device="cuda")
+    c = [s // 2 for s in COMBINE_ROOM_SHAPE]
+    big = large_sphere_mask(COMBINE_ROOM_SHAPE[2], "cuda")
+    h = COMBINE_ROOM_SHAPE[2] // 2
+    room[c[0] - h:c[0] + h, c[1] - h:c[1] + h] = big
+    del big
+    fields["x".join(map(str, COMBINE_ROOM_SHAPE)) + " streamed"] = (
+        edt.squared_edt_streamed(room), edt.squared_edt_streamed(~room))
+    del room
+
+    def launch(a, b, out):
+        before = edt_combine.launches
+        got = edt_combine.signed_combine(a, b, RESOLUTION, out)
+        if edt_combine.launches != before + 1:
+            raise AssertionError(f"edt_combine: "
+                                 f"{edt_combine.launches - before} launches")
+        return got
+
+    rows = []
+    for name, (a, b) in fields.items():
+        dtypes = ((torch.float32, torch.float64) if name.endswith("dense")
+                  else (torch.float32,))
+        for dtype in dtypes:
+            want = edt_combine.signed_combine_plain(
+                a, b, RESOLUTION, torch.empty(a.shape, dtype=dtype,
+                                              device="cuda"))
+            got = launch(a, b, torch.empty(a.shape, dtype=dtype,
+                                           device="cuda"))
+            first = launch(a, None, torch.empty(a.shape, dtype=dtype,
+                                                device="cuda"))
+            checks = {"both fields": got,
+                      "one field at a time": launch(None, b, first)}
+            if dtype == torch.float32:
+                in_place = a.clone()
+                checks["in place over a"] = launch(in_place, b, in_place)
+            torch.cuda.synchronize()
+            for form, result in checks.items():
+                if not _bitwise(result, want):
+                    diff = int((result != want).sum())
+                    raise AssertionError(f"edt_combine != plain on {name} "
+                                         f"{dtype}, {form}: {diff} differ")
+            forms = ", ".join(checks)
+            del first, checks
+            out = torch.empty(a.shape, dtype=dtype, device="cuda")
+            ms = cuda_ms(lambda: edt_combine.signed_combine(
+                a, b, RESOLUTION, out), 20)
+            plain_ms = cuda_ms(lambda: edt_combine.signed_combine_plain(
+                a, b, RESOLUTION, out), 3)
+            bound_ms, bound_by = bound_of(
+                a.numel() * (8 + out.element_size()), COMBINE_OPS * a.numel())
+            log(f"edt_combine {name} {dtype}: {ms:.4f} ms, bound "
+                f"{bound_ms:.4f} ms ({bound_by}), bound / time "
+                f"{bound_ms / ms:.3f}; plain {plain_ms:.3f} ms; {forms} "
+                f"bitwise equal to plain; "
+                f"{int(want.isnan().sum())} NaN, "
+                f"{int(want.isinf().sum())} infinite")
+            rows.append({"ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by})
+            del want, got, out
+    del fields
+
+    edt.signed_distance_from_filled_mask(mask, RESOLUTION)
+    torch.cuda.synchronize()
+    before = edt_combine.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        edt.signed_distance_from_filled_mask(mask, RESOLUTION)
+        torch.cuda.synchronize()
+    launched = edt_combine.launches - before
+    events = prof.events()
+    blocking, calls = blocking_calls_in(events, "vgt.edt.combine")
+    device_ops = sorted((e for e in events if e.device_type == DeviceType.CUDA
+                         and not e.name.startswith("vgt.")),
+                        key=lambda e: e.time_range.start)
+    names = [e.name for e in device_ops]
+    traced = [e.time_range.elapsed_us() / 1e3 for e in device_ops
+              if "edt_combine_kernel" in e.name]
+    log(f"edt_combine in one {n}^3 dense EDT: {launched} launch, device "
+        f"operations in order {names}, runtime calls in vgt.edt.combine "
+        f"{calls}, traced kernel {traced} ms")
+    if (launched != 1 or len(traced) != 1
+            or "edt_combine_kernel" not in names[-1]
+            or "edt_bestfirst" not in names[-2]):
+        raise AssertionError(f"one dense EDT: {launched} combine launches, "
+                             f"device operations {names}")
+    if blocking:
+        raise AssertionError(f"vgt.edt.combine blocked the host: {blocking}")
+    log(f"phase_edt_combine: {time.monotonic() - t_phase:.1f} s")
+    return rows[0]
+
+
 def phase_main_path():
     """The main path at full size, with every launch count reset first."""
     from voxelized_geometry_tools_tpu_torch import GridSpec
@@ -744,13 +873,16 @@ def phase_main_path():
     if launches != 2:
         raise AssertionError(f"the {GRID_N}^3 EDT launched the staged kernel "
                              f"{launches} times, expected 2 (y and z passes)")
-    if sum(counts.values()) != launches + counts["edt_seed"]:
+    if counts["edt_combine"] != 1:
+        raise AssertionError(f"the {GRID_N}^3 EDT launched the combine kernel "
+                             f"{counts['edt_combine']} times, expected 1")
+    if sum(counts.values()) != launches + counts["edt_seed"] + 1:
         raise AssertionError(f"the main path launched another kernel: {counts}")
     if any(calls.values()):
         raise AssertionError(f"the main path ran the global variant's minima "
                              f"or transposing view: {calls}")
     return (spec, mask, sdf, table, camera, fixed, early, launches,
-            counts["edt_seed"])
+            counts["edt_seed"], counts["edt_combine"])
 
 
 def phase_edt_checks(mask, sdf):
@@ -925,8 +1057,8 @@ def edt_through(mask, backend, hoist_cmin, kname, ref, what, expect=None):
     bits. Returns ``kname``'s launches and the largest error."""
     from voxelized_geometry_tools_tpu_torch.ops import edt
 
-    # Every dense EDT launches the seed kernel once.
-    expect = {**(expect or {kname: 2}), "edt_seed": 1}
+    # Every dense EDT launches the seed and the combine kernel once.
+    expect = {**(expect or {kname: 2}), "edt_seed": 1, "edt_combine": 1}
     torch.cuda.synchronize()
     reset_launches()
     with bestfirst_hoist(hoist_cmin):
@@ -1090,8 +1222,9 @@ def phase_global_variant():
 
 def phase_sqrt_rounding():
     """On every integer below 3 * 1024^2 (every squared distance of a 1024^3
-    EDT): the CUDA float64 sqrt, which the EDT's signed combine takes, must
-    equal numpy's correctly rounded one; whether the float32 CUDA sqrt is
+    EDT): the CUDA float64 sqrt, which the plain version of the EDT's
+    signed combine takes (``ops/edt._sqrt``), must equal numpy's correctly
+    rounded one; whether the float32 CUDA sqrt is
     correctly rounded too is reported, not relied on."""
     x = torch.arange(3 * LARGE_N ** 2, device="cuda", dtype=torch.float32)
     s64 = torch.sqrt(x.double())
@@ -1168,14 +1301,15 @@ def phase_large_grid():
     log(f"large {n}^3: extract_signed_distance_field {t_extract * 1e3:.1f} ms"
         f" (first call, min/max included); launches {counts}, schedule "
         f"expects {expected} of edt_bestfirst_staged")
-    # One seed launch per axis-0 slab, for each field.
+    # One seed launch per axis-0 slab, for each field; one combine.
     seed_expected = 2 * len(edt._slabs(n, 128))
     if (launches != expected or counts["edt_seed"] != seed_expected
-            or sum(counts.values()) != expected + seed_expected):
+            or counts["edt_combine"] != 1
+            or sum(counts.values()) != expected + seed_expected + 1):
         raise AssertionError(f"streamed {n}^3 EDT launched {counts}, the "
                              f"schedule expects {expected} of "
-                             f"edt_bestfirst_staged and {seed_expected} of "
-                             "edt_seed")
+                             f"edt_bestfirst_staged, {seed_expected} of "
+                             "edt_seed and 1 of edt_combine")
     log(f"large {n}^3: peak device memory of the streamed call "
         f"{peak_bytes / 2 ** 30:.6f} GiB, {peak_bytes} bytes, of which the "
         f"call allocated {growth} ({before} held before it)")
@@ -2032,6 +2166,8 @@ def phase_pipeline(camera):
     if counts["fusion_filter"] != 1:
         raise AssertionError(f"the pipeline's filter launches: {counts}, "
                              "expected the fusion filter kernel once")
+    if counts["edt_combine"] != 1:
+        raise AssertionError(f"the pipeline's combine launches: {counts}")
     occ = out.occupancy_map.occupancy
     values = set(torch.unique(occ).tolist())
     if not values <= {0.0, 0.5, 1.0} or len(values) != 3:
@@ -2383,10 +2519,11 @@ def phase_mapper():
     with torch.no_grad():
         sdf, sdf_ms = _timed(mapper.sdf)
     counts = read_launches()
-    if counts["edt_bestfirst_staged"] != 2 or sum(counts.values()) != 3:
+    if (counts["edt_bestfirst_staged"], counts["edt_seed"],
+            counts["edt_combine"]) != (2, 1, 1) or sum(counts.values()) != 4:
         raise AssertionError(f"the mapper's SDF launches: {counts}, expected "
-                             "the staged best-first EDT kernel twice and the "
-                             "seed kernel once")
+                             "the staged best-first EDT kernel twice, the "
+                             "seed and the combine kernel once")
     if mapper.sdf() is not sdf or not bool(
             torch.isfinite(sdf.distances).all()):
         raise AssertionError("the mapper's SDF is not cached or not finite")
@@ -2444,7 +2581,8 @@ def phase_fits():
                                                 frame="bench")
     torch.cuda.synchronize()
     counts = read_launches()
-    if counts["edt_bestfirst_staged"] != 2 or sum(counts.values()) != 3:
+    if (counts["edt_bestfirst_staged"], counts["edt_combine"]) != (2, 1) \
+            or sum(counts.values()) != 4:
         raise AssertionError(f"the fits' SDF launches: {counts}")
     del mask
     sizes = np.asarray(spec.grid_sizes)
@@ -2824,7 +2962,8 @@ def queries_clouds(steps, sdf, table, spec, cams, batch):
     with torch.no_grad():
         resdf = _step(steps, "re-carved mapper sdf()", mapper.sdf)
     counts = read_launches()
-    if counts["edt_bestfirst_staged"] != 2 or sum(counts.values()) != 3:
+    if (counts["edt_bestfirst_staged"], counts["edt_combine"]) != (2, 1) \
+            or sum(counts.values()) != 4:
         raise AssertionError(f"the re-carved SDF's launches {counts}")
     occ = mapper.occupancy_map.occupancy
     filled = occ > 0.5
@@ -3083,7 +3222,8 @@ def phase_queries():
             edt.extract_signed_distance_field(mask, spec, None,
                                               frame="bench")))
     counts = read_launches()
-    if counts["edt_bestfirst_staged"] != 2 or sum(counts.values()) != 3:
+    if (counts["edt_bestfirst_staged"], counts["edt_combine"]) != (2, 1) \
+            or sum(counts.values()) != 4:
         raise AssertionError(f"the queries' SDF launches: {counts}")
     with torch.no_grad():
         table = _step(steps, "corner table",
@@ -3409,7 +3549,7 @@ def geometry_sphere(steps, spec, launches):
         sdf, counts = _counted(
             steps, f"extract_signed_distance_field {n}^3",
             lambda: map_ops.extract_signed_distance_field(omap),
-            {"edt_bestfirst_staged": 2, "edt_seed": 1})
+            {"edt_bestfirst_staged": 2, "edt_seed": 1, "edt_combine": 1})
     _add_launches(launches, counts)
     iso = _gstep(steps, f"extract_isosurface {n}^3 (cap {GEOMETRY_CAP})",
                  lambda: isosurface.extract_isosurface(
@@ -3579,7 +3719,8 @@ def geometry_clutter(steps, spec, launches):
         sdfs, counts = _counted(
             steps, f"make_all_object_sdfs ({k} objects)",
             lambda: map_ops.make_all_object_sdfs(omap),
-            {"edt_bestfirst_staged": 2 * k, "edt_seed": k})
+            {"edt_bestfirst_staged": 2 * k, "edt_seed": k,
+             "edt_combine": k})
     _add_launches(launches, counts)
     oid = omap.object_id.view(torch.int32)
     for i, sdf in sdfs.items():
@@ -3592,7 +3733,8 @@ def geometry_clutter(steps, spec, launches):
             steps, f"extract_object_meshes ({k} objects)",
             lambda: isosurface.extract_object_meshes(
                 omap, max_triangles=GEOMETRY_CAP, frame="grid"),
-            {"edt_bestfirst_staged": 2 * k, "edt_seed": k})
+            {"edt_bestfirst_staged": 2 * k, "edt_seed": k,
+             "edt_combine": k})
     _add_launches(launches, counts)
     n_tris = {}
     for i, m in meshes.items():
@@ -3610,7 +3752,7 @@ def geometry_clutter(steps, spec, launches):
         seg, counts = _counted(
             steps, f"update_spatial_segments ({SEGMENT_VOXELS} voxels)",
             lambda: map_ops.update_spatial_segments(omap, thresh),
-            {"edt_bestfirst_staged": 4, "edt_seed": 2})
+            {"edt_bestfirst_staged": 4, "edt_seed": 2, "edt_combine": 2})
     _add_launches(launches, counts)
     labels = seg.spatial_segment.view(torch.int32)
     num = int(seg.number_of_spatial_segments.view(torch.int32))
@@ -3735,7 +3877,8 @@ def geometry_mapper(steps, launches):
         iso, counts = _counted(steps, "OnlineMapper.extract_mesh",
                                lambda: mapper.extract_mesh(
                                    max_triangles=MAPPER_CAP),
-                               {"edt_bestfirst_staged": 2, "edt_seed": 1})
+                               {"edt_bestfirst_staged": 2, "edt_seed": 1,
+                                "edt_combine": 1})
     _add_launches(launches, counts)
     n_tri = int(iso.num_triangles)
     if bool(iso.overflowed) or n_tri == 0:
@@ -4062,10 +4205,11 @@ def phase_sharded(camera):
              for k in got["launches"][0]}
     for r in range(SHARDED_RANKS):
         launches = got["launches"][r]
-        # 4 clouds, one filter of their grids; 2 envelope passes for each
-        # of the 2 SDFs.
+        # 4 clouds, one filter of their grids; 2 envelope passes and one
+        # combine for each of the 2 SDFs.
         if launches != {"edt_bestfirst_staged": 4,
-                        "carve_tiled": len(cloud_args), "fusion_filter": 1}:
+                        "carve_tiled": len(cloud_args), "fusion_filter": 1,
+                        "edt_combine": 2}:
             raise AssertionError(f"rank {r} launches {launches}")
 
     _same_array(got["occupancy"], ref_occ, "fused occupancy")
@@ -4185,9 +4329,10 @@ def main():
     err_cases = phase_kernel_vs_plain()
     seed_row = phase_edt_seed()
     filter_row = phase_fusion_filter()
+    combine_row = phase_edt_combine()
     torch.cuda.reset_peak_memory_stats()
-    spec, mask, sdf, table, camera, fixed, early, launches, seed_launches = \
-        phase_main_path()
+    (spec, mask, sdf, table, camera, fixed, early, launches, seed_launches,
+     combine_launches) = phase_main_path()
     log(f"peak device memory, main path: "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
     t_edt, err_edt, pass_bounds = phase_edt_checks(mask, sdf)
@@ -4297,6 +4442,16 @@ def main():
         "source": CSRC + "fusion_filter.cu", "replaces": FILTER_REPLACES,
         "launches": filter_launches + sharded_launches["fusion_filter"],
         "max_abs_err": 0.0, **filter_row, "library_ms": None,
+    })
+    # The combine kernel: the main path's launches (one dense EDT, one) and
+    # the sharded worlds' (one an SDF), its time on the 512^3 sphere's
+    # stacked field in float32 and the plain version's. Every comparison
+    # of it is bitwise and a difference raises.
+    kernels.append({
+        "name": "edt_combine", "route": "cuda",
+        "source": CSRC + "edt_combine.cu", "replaces": COMBINE_REPLACES,
+        "launches": combine_launches + sharded_launches["edt_combine"],
+        "max_abs_err": 0.0, **combine_row, "library_ms": None,
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

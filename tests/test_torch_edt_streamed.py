@@ -79,10 +79,9 @@ def test_streamed_prime_and_anisotropic_shapes(shape):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
-def test_streamed_signed_distance_matches_jax_and_dense(dtype, monkeypatch):
-    """Both dtypes of the combine; a small combine step makes the chunked
-    in-place sqrt take several steps, with a ragged last one."""
-    monkeypatch.setattr(edt, "_COMBINE_CHUNK", 1000)
+def test_streamed_signed_distance_matches_jax_and_dense(dtype):
+    """Both dtypes of the combine: float32 in one step over both fields,
+    float64 one field at a time into the result."""
     mask, res = _seed((20, 24, 28), 17, p=0.3), 0.05
     tdtype = getattr(torch, dtype)
     got = edt.signed_distance_from_filled_mask_streamed(

@@ -376,7 +376,8 @@ def test_streamed_edt_spans_and_slabs(monkeypatch, tmp_path, shape):
     assert names.count("vgt.edt") == 1
     assert names.count("vgt.edt.seed_pass") == 2
     assert names.count("vgt.edt.envelope") == 2 * (len(passes) - 1)
-    assert names.count("vgt.edt.combine") == 2
+    # One float32 combine over both fields, after the second field.
+    assert names.count("vgt.edt.combine") == 1
     assert names.count("vgt.edt.slab_writeback") == slabs
     assert edt.streamed_slabs - before == slabs
     parents = [_parent(span, spans) for span in spans

@@ -13,6 +13,9 @@ package's:
   (best-first, full sweep, windowed; :mod:`..kernels`). On a CUDA tensor
   ``backend="auto"`` launches the best-first kernel; on a CPU tensor it
   runs the plain version.
+* **The signed combine** ``sqrt(d2_filled) * res - sqrt(d2_free) * res``:
+  on a CUDA tensor one launch of the combine kernel
+  (:mod:`..kernels.edt_combine`); on a CPU tensor its plain version.
 
 The slab-streamed pipeline (:func:`squared_edt_streamed`,
 :func:`signed_distance_from_filled_mask_streamed`) runs the same passes
@@ -27,13 +30,16 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
-import numpy as np
 import torch
 
 from ..core.device import default_device
 from ..core.grid import GridSpec
 from ..core.maps import SignedDistanceField
-from ..kernels import edt_bestfirst, edt_envelope, edt_seed, edt_windowed
+from ..kernels import (edt_bestfirst, edt_combine, edt_envelope, edt_seed,
+                       edt_windowed)
+# The correctly rounded square root, shared with the combine's plain version
+# and used by every module that must match the JAX package's roots.
+from ..kernels.edt_combine import correctly_rounded_sqrt as _sqrt
 from ..utils.profiling import _span
 
 Tensor = torch.Tensor
@@ -59,10 +65,6 @@ BACKEND_ALIASES = {
     "pallas-windowed": "cuda-windowed",
     "pallas-bestfirst": "cuda-bestfirst",
 }
-
-# Elements per step of the streamed signed combine: its float64 sqrt
-# temporaries stay at 1 GiB whatever the grid.
-_COMBINE_CHUNK = 1 << 27
 
 # Slabs the streamed passes walked: one per slab of each seed or envelope
 # pass of each field.
@@ -149,7 +151,9 @@ def signed_distance_from_filled_mask(is_filled: Tensor, resolution: float,
 
     Both fields ride ONE envelope pass per axis (stacked along axis 0 by
     their binary axis-0 pass), so an EDT makes two envelope calls, not
-    four. ``dtype`` governs only the final sqrt/scale combine."""
+    four. ``dtype`` governs only the final sqrt/scale combine: on a CUDA
+    tensor one launch of the combine kernel (:mod:`..kernels.edt_combine`)
+    over the stacked field's two halves."""
     is_filled = is_filled.bool()
     with _span("edt.seed_pass"):
         d = edt_seed.seed_fields(is_filled, 2)
@@ -161,25 +165,17 @@ def signed_distance_from_filled_mask(is_filled: Tensor, resolution: float,
         with _span("edt.envelope"):
             d = _envelope_last(d, block, backend)
     with _span("edt.combine"):
-        nx = is_filled.shape[0]
-        res = torch.tensor(resolution, dtype=dtype, device=d.device)
-        out = (_sqrt(d[:nx], dtype) * res - _sqrt(d[nx:], dtype) * res)
-        return out.contiguous()
+        return _combine_stacked(d, resolution, dtype)
 
 
-def _sqrt(x: Tensor, dtype) -> Tensor:
-    """Correctly rounded ``sqrt`` in ``dtype`` (float32 or float64), so the
-    result matches the JAX package bit for bit on every device. It is taken
-    in float64 and rounded: a correctly rounded float64 sqrt rounded to
-    float32 is the correctly rounded float32 sqrt (53 >= 2 * 24 + 2).
-    PyTorch's CPU sqrt is not correctly rounded in either type (measured
-    on the integers below 3 * 512^2: 5456 differ by one ulp in float32,
-    6070 in float64), so a CPU tensor takes numpy's, which is; on CUDA the
-    float64 sqrt is IEEE."""
-    x64 = x.to(torch.float64)
-    if x64.device.type == "cpu":
-        return torch.from_numpy(np.asarray(np.sqrt(x64.numpy()))).to(dtype)
-    return torch.sqrt(x64).to(dtype)
+def _combine_stacked(d: Tensor, resolution: float, dtype) -> Tensor:
+    """The signed combine of a stacked field ``d`` (``[2 nx, ...]``: the
+    squared distances to the filled set, then to the free set) into a new
+    ``dtype`` tensor ``[nx, ...]``."""
+    nx = d.shape[0] // 2
+    out = torch.empty((nx,) + tuple(d.shape[1:]), dtype=dtype,
+                      device=d.device)
+    return edt_combine.signed_combine(d[:nx], d[nx:], resolution, out)
 
 
 def _largest_divisor_at_most(n: int, target: int) -> int:
@@ -268,42 +264,33 @@ def squared_edt_streamed(seed: Tensor, slab: int = 128, block: int = 512,
     return d
 
 
-def _scaled_sqrt_into(out: Tensor, d2: Tensor, res: Tensor,
-                      subtract: bool) -> None:
-    """``out = sqrt(d2) * res``, or ``out -= sqrt(d2) * res``, in steps of ``_COMBINE_CHUNK`` elements, so that the
-    float64 temporaries of :func:`_sqrt` stay small. ``out`` may be ``d2``
-    itself. Each element is rounded as in the dense combine."""
-    flat_out, flat_d2 = out.view(-1), d2.view(-1)
-    for s in range(0, flat_d2.numel(), _COMBINE_CHUNK):
-        v = _sqrt(flat_d2[s:s + _COMBINE_CHUNK], out.dtype) * res
-        if subtract:
-            flat_out[s:s + _COMBINE_CHUNK] -= v
-        else:
-            flat_out[s:s + _COMBINE_CHUNK] = v
-
-
 def signed_distance_from_filled_mask_streamed(
         is_filled: Tensor, resolution: float, slab: int = 128,
         block: int = 512, dtype=torch.float32,
         backend: str = "auto") -> Tensor:
     """Two-field signed combine with slab-bounded memory: the fields run one
     after the other (not stacked), each pass streams slabs, and the combine
-    is taken in place chunk by chunk, so about 2 float32 grids stay
-    resident instead of the dense path's 4 or more. Bit-identical to
-    :func:`signed_distance_from_filled_mask`. Each field's combine is a
-    ``vgt.edt.combine`` span."""
+    is taken in place, so about 2 float32 grids stay resident instead of the
+    dense path's 4 or more. Bit-identical to
+    :func:`signed_distance_from_filled_mask`. In float32 both fields'
+    squared distances are kept and one ``vgt.edt.combine`` span writes the
+    signed field over the first (one kernel launch on a CUDA tensor); in
+    float64 the first field's scaled root goes into the result before the
+    second field is formed, and the second's is subtracted from it, each a
+    ``vgt.edt.combine`` span, so the peak holds the result and one field."""
     is_filled = is_filled.bool()
-    res = torch.tensor(resolution, dtype=dtype, device=is_filled.device)
     d2 = squared_edt_streamed(is_filled, slab, block, backend)
-    out = d2 if dtype == torch.float32 else torch.empty(
-        d2.shape, dtype=dtype, device=d2.device)
+    if dtype == torch.float32:
+        d2_free = squared_edt_streamed(~is_filled, slab, block, backend)
+        with _span("edt.combine"):
+            return edt_combine.signed_combine(d2, d2_free, resolution, d2)
+    out = torch.empty(d2.shape, dtype=dtype, device=d2.device)
     with _span("edt.combine"):
-        _scaled_sqrt_into(out, d2, res, subtract=False)
+        edt_combine.signed_combine(d2, None, resolution, out)
     del d2
-    d2 = squared_edt_streamed(~is_filled, slab, block, backend)
+    d2_free = squared_edt_streamed(~is_filled, slab, block, backend)
     with _span("edt.combine"):
-        _scaled_sqrt_into(out, d2, res, subtract=True)
-    return out
+        return edt_combine.signed_combine(None, d2_free, resolution, out)
 
 
 def _pad_axis_flags(counts: Tuple[int, int, int]):

@@ -133,10 +133,7 @@ def sharded_signed_distance(is_filled: Tensor, resolution: float,
                                    backend).movedim(-1, 1)
     if lz * n > 1:
         d = _z_pass(d, mesh, block, backend)
-    res = torch.tensor(resolution, dtype=dtype, device=d.device)
-    out = (edt_ops._sqrt(d[:nx], dtype) * res
-           - edt_ops._sqrt(d[nx:], dtype) * res)
-    return out.contiguous()
+    return edt_ops._combine_stacked(d, resolution, dtype)
 
 
 def _sharded_field(spec: GridSpec, values: Tensor, origin_transform,
