@@ -1,9 +1,10 @@
 """One run of one cell: set-up, warm-up, the measured window, the check.
 
-``run_cell`` builds the cell's loop from its configuration and traffic mix,
-warms it up (set-up ends there), then drives it as one closed-loop client
-for ``seconds``: each request starts when the last one has returned, and
-its latency runs from handing over its inputs to its synchronized result.
+``run_cell`` builds the cell's loop, of the kind its traffic mix names
+(``registry.loop``), from its configuration and traffic mix, warms it up
+(set-up ends there), then drives it as one closed-loop client for
+``seconds``: each request starts when the last one has returned, and its
+latency runs from handing over its inputs to its synchronized result.
 With ``trace`` the steps are also split by synchronized spans and the
 first ``trace_steps`` of them run under the profiler; the run then reports
 the cell's per-layer metrics instead of its end-to-end ones. After the
@@ -24,7 +25,6 @@ from typing import Dict, List, Optional
 import torch
 
 from . import registry
-from .loops import LOOPS
 from .tracing import DeviceTrace, Spans, TraceSummary
 
 
@@ -72,7 +72,7 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool,
     counter_paths = {k: v for r in readers.values()
                      for k, v in getattr(r, "COUNTERS", {}).items()}
 
-    loop = LOOPS[traffic["loop"]](config, traffic, seed, device)
+    loop = registry.loop(traffic["loop"])(config, traffic, seed, device)
     loop.setup()
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)

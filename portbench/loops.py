@@ -1,4 +1,9 @@
-"""The closed loops a traffic mix drives, one class per ``"loop"`` kind.
+"""The loop contract, and the code that the mapping loop kinds share.
+
+A traffic mix names the kind of loop it drives (``"loop"``); the harness
+loads that kind from ``portbench/loop_kinds/<kind>.py`` by path
+(``registry.loop``), as it loads a metric's reader, and builds the file's
+``LOOP`` class. ``Loop`` below is the contract every such class keeps.
 
 A loop builds its inputs from the seed in ``setup``, runs one request per
 ``step`` (a sensor frame, from the host tensors a camera node hands to the
@@ -56,12 +61,62 @@ class Sample:
     # All on the host; ``before`` is None for the fresh map.
 
 
-class MappingLoop:
-    """Frames of depth clouds into a running occupancy, then the SDF."""
+class Loop:
+    """What the harness calls on a loop kind's ``LOOP``, in this order:
+
+    * ``LOOP(config, traffic, seed, device)``: the cell's configuration and
+      traffic mix as dicts, the run's seed, the device; nothing runs yet.
+    * ``setup()``: the inputs, from the seed, and the program's state.
+    * ``warm_up(spans)``: every shape the window uses, through the
+      window's own call. Set-up ends when it returns.
+    * For each window request ``i`` (0-based): ``before_step(i, elapsed_s,
+      seconds)``, outside its latency (``elapsed_s`` since the window
+      opened, of ``seconds``); ``step(i, spans, traced)``, its latency,
+      which the harness ends with a synchronize; ``after_step(i)``,
+      outside its latency. ``spans`` is the run's ``tracing.Spans``;
+      ``traced`` says whether the run is traced.
+    * ``end_window()``: once the window's peak memory is read; drops the
+      program's state.
+    * ``check(control=None)``: the compared numbers, ``{name: number}``,
+      of the program's outputs against the plain reference; with
+      ``control`` (a lower ``torch.dtype``), of the reference computed in
+      it, standing where the program's outputs stood. The harness keeps
+      the names that ``limits/<cell>.json`` gives a limit, so a kind's
+      own numbers need only their limits.
+    """
 
     def __init__(self, config: dict, traffic: dict, seed: int, device):
         self.config, self.traffic, self.seed = config, traffic, seed
         self.device = torch.device(device)
+
+    def setup(self) -> None:
+        raise NotImplementedError
+
+    def warm_up(self, spans: Spans) -> None:
+        raise NotImplementedError
+
+    def before_step(self, i: int, elapsed_s: float, seconds: float) -> None:
+        pass
+
+    def step(self, i: int, spans: Spans, traced: bool) -> None:
+        raise NotImplementedError
+
+    def after_step(self, i: int) -> None:
+        pass
+
+    def end_window(self) -> None:
+        pass
+
+    def check(self, control: Optional[torch.dtype] = None
+              ) -> Dict[str, float]:
+        raise NotImplementedError
+
+
+class MappingLoop(Loop):
+    """Frames of depth clouds into a running occupancy, then the SDF."""
+
+    def __init__(self, config: dict, traffic: dict, seed: int, device):
+        super().__init__(config, traffic, seed, device)
         self.samples: List[Sample] = []
         self.latest: Optional[Tensor] = None  # the newest SDF's values
         self._before: Optional[Tensor] = None
@@ -230,70 +285,3 @@ class MappingLoop:
             worst["sdf_mismatch_voxels"] = max(worst["sdf_mismatch_voxels"],
                                                sdf)
         return worst
-
-
-class MapperLoop(MappingLoop):
-    """``OnlineMapper.integrate`` then ``OnlineMapper.sdf()`` each frame."""
-
-    def _build(self) -> None:
-        from voxelized_geometry_tools_tpu_torch.models.online_mapper import \
-            OnlineMapper
-        self.mapper = OnlineMapper(self.spec, filter_options=self.options,
-                                   device=self.device)
-
-    def occupancy(self) -> Tensor:
-        return self.mapper.occupancy_map.occupancy
-
-    def _frame(self, frame, spans, traced):
-        (cloud,) = self._clouds(frame)
-        with spans.span("fuse", traced):
-            self.mapper.integrate(cloud)
-        with spans.span("sdf", traced):
-            sdf = self.mapper.sdf(
-                unknown_is_filled=self.traffic["unknown_is_filled"])
-        return sdf.distances
-
-    def _release(self) -> None:
-        self.mapper = None
-
-
-class VoxelizerLoop(MappingLoop):
-    """The best available voxelizer's ``voxelize_pointclouds`` over the
-    running occupancy, then ``extract_sdf_from_occupancy``, each frame."""
-
-    def _build(self) -> None:
-        from voxelized_geometry_tools_tpu_torch.core.maps import OccupancyMap
-        from voxelized_geometry_tools_tpu_torch.ops import backends
-        if self.device.type == "cuda":
-            self.voxelizer = \
-                backends.make_best_available_pointcloud_voxelizer()
-        else:
-            self.voxelizer = backends.AcceleratorPointCloudVoxelizer(
-                device=self.device)
-        self.env = OccupancyMap.create(self.spec, device=self.device)
-
-    def occupancy(self) -> Tensor:
-        return self.env.occupancy
-
-    def _frame(self, frame, spans, traced):
-        from voxelized_geometry_tools_tpu_torch.ops import edt
-        clouds = self._clouds(frame)
-
-        def log(runtime):
-            spans.add("carve", runtime.raycasting_time)
-            spans.add("filter", runtime.filtering_time)
-
-        with spans.span("fuse", traced):
-            self.env = self.voxelizer.voxelize_pointclouds(
-                self.env, self.options, clouds, runtime_log_fn=log)
-        with spans.span("sdf", traced):
-            sdf = edt.extract_sdf_from_occupancy(
-                self.env.occupancy, self.spec, self.env.origin_transform,
-                unknown_is_filled=self.traffic["unknown_is_filled"])
-        return sdf.distances
-
-    def _release(self) -> None:
-        self.env = self.voxelizer = None
-
-
-LOOPS = {"mapper": MapperLoop, "voxelizer": VoxelizerLoop}

@@ -1,8 +1,11 @@
 """Mean milliseconds a frame of device time launched inside the program's
 ``vgt.edt.combine`` spans: the EDT's signed combine, ``sqrt`` of each
-field in float64 scaled by the resolution (in the slab-streamed EDT, chunk
-by chunk into the result), from the profiler's trace of the traced frames.
-A program without the span gives nothing to read."""
+squared-distance field scaled by the resolution, the one subtracted from
+the other. On the card that is one ``edt_combine_kernel`` launch a frame,
+which the slab-streamed float32 EDT makes in place over its first field;
+whatever the program launches in the span counts. From the profiler's
+trace of the traced frames. A program without the span gives nothing to
+read."""
 
 from portbench import program_spans
 

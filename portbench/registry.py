@@ -5,10 +5,13 @@
 * a metric's reader: ``portbench/metrics/<metric>.py`` (loaded by path, so
   a name may hold dots), with a ``read(run)`` that returns a number or
   None;
-* a cell's limits for ``correct``: ``portbench/limits/<cell>.json``.
+* a cell's limits for ``correct``: ``portbench/limits/<cell>.json``;
+* the kind of loop a traffic mix drives (its ``"loop"``):
+  ``portbench/loop_kinds/<kind>.py`` (loaded by path), whose ``LOOP`` is a
+  class that keeps the contract of ``loops.Loop``.
 
-A later change adds a configuration, a mix, a metric or a cell by adding
-such files and entries; nothing here names one.
+A later change adds a configuration, a mix, a metric, a cell or a kind of
+loop by adding such files and entries; nothing here names one.
 """
 
 from __future__ import annotations
@@ -55,15 +58,26 @@ def limits(cell: str, root: Path = HERE) -> Dict[str, float]:
         return json.load(f)
 
 
-def reader(metric: str, root: Path = HERE) -> ModuleType:
-    path = root / "metrics" / f"{metric}.py"
-    spec = importlib.util.spec_from_file_location(
-        f"portbench_metric_{metric.replace('.', '_')}", path)
+def _load(path: Path, module_name: str, what: str) -> ModuleType:
+    spec = importlib.util.spec_from_file_location(module_name, path)
     if spec is None or not path.exists():
-        raise FileNotFoundError(f"no reader for metric {metric!r} at {path}")
+        raise FileNotFoundError(f"no {what} at {path}")
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def reader(metric: str, root: Path = HERE) -> ModuleType:
+    return _load(root / "metrics" / f"{metric}.py",
+                 f"portbench_metric_{metric.replace('.', '_')}",
+                 f"reader for metric {metric!r}")
+
+
+def loop(kind: str, root: Path = HERE) -> type:
+    """The ``LOOP`` class of ``loop_kinds/<kind>.py``."""
+    return _load(root / "loop_kinds" / f"{kind}.py",
+                 f"portbench_loop_{kind.replace('.', '_')}",
+                 f"loop kind {kind!r}").LOOP
 
 
 def metrics_of(bench: dict, cell: str, traced: bool) -> List[dict]:
