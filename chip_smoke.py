@@ -158,10 +158,16 @@ PROBES = {
                          probes.MARCH_STEPS * 256),
 }
 LIBRARIES = ("edt_bestfirst", "edt_envelope", "edt_windowed", "probes",
-             "carve", "edt_seed", "fusion_filter", "edt_combine")
+             "carve", "edt_seed", "fusion_filter", "edt_combine", "ray_setup",
+             "transform_product")
 # The carve kernel replaces no TPU kernel: the JAX package carves with XLA
 # scatters in while-loops (raycast_pointcloud and its column twin).
 CARVE_REPLACES = "voxelized_geometry_tools_tpu/ops/voxelize.py:357"
+# Nor do the setup kernel and the transform product kernel: the JAX
+# package sets rays up with XLA elementwise operations (_prepare_rays,
+# _ray_visits) and forms transform products as XLA dots (compose).
+SETUP_REPLACES = "voxelized_geometry_tools_tpu/ops/voxelize.py:242"
+PRODUCT_REPLACES = "voxelized_geometry_tools_tpu/core/transforms.py:128"
 # Nor does the EDT's seed kernel: the JAX package takes the axis-0 binary
 # pass with XLA cummax scans (_binary_squared_dist_last).
 SEED_REPLACES = "voxelized_geometry_tools_tpu/ops/edt.py:50"
@@ -296,8 +302,9 @@ def staged_planned(kname, f):
 
 def reset_launches():
     from voxelized_geometry_tools_tpu_torch.kernels import (
-        carve, edt_combine, edt_seed, fusion_filter)
+        carve, edt_combine, edt_seed, fusion_filter, ray_setup)
     eb, ee, ew = kernel_modules()
+    ray_setup.launches = 0
     edt_seed.launches = 0
     fusion_filter.launches = 0
     edt_combine.launches = 0
@@ -309,10 +316,13 @@ def reset_launches():
 
 
 def read_launches():
+    """Every kernel's launches but the transform product's (any transform
+    on the card launches it; the carve phases count it themselves)."""
     from voxelized_geometry_tools_tpu_torch.kernels import (
-        carve, edt_combine, edt_seed, fusion_filter)
+        carve, edt_combine, edt_seed, fusion_filter, ray_setup)
     eb, ee, ew = kernel_modules()
-    return {"edt_seed": edt_seed.launches,
+    return {"ray_setup": ray_setup.launches,
+            "edt_seed": edt_seed.launches,
             "fusion_filter": fusion_filter.launches,
             "edt_combine": edt_combine.launches,
             "carve_tiled": carve.launches_tiled,
@@ -353,7 +363,8 @@ def phase_build():
     eb, ee, ew = kernel_modules()
     from voxelized_geometry_tools_tpu_torch import native
     from voxelized_geometry_tools_tpu_torch.kernels import (
-        carve, edt_combine, edt_seed, fusion_filter)
+        carve, edt_combine, edt_seed, fusion_filter, ray_setup,
+        transform_product)
     t0 = time.monotonic()
     with ThreadPoolExecutor(len(LIBRARIES) + 1) as pool:
         # The native CPU runtime (g++) builds beside the CUDA sources.
@@ -368,6 +379,8 @@ def phase_build():
     edt_seed._library()
     fusion_filter._library()
     edt_combine._library()
+    ray_setup._library()
+    transform_product._library()
     log(f"build: {', '.join(LIBRARIES)} and the native CPU runtime in "
         f"{time.monotonic() - t0:.2f} s (in parallel)")
     for name, path in zip(LIBRARIES, paths):
@@ -1971,6 +1984,41 @@ def grids_equal(a, b):
             and torch.equal(a.seen_filled.cpu(), b.seen_filled.cpu()))
 
 
+def setup_fields_differing(a, b):
+    """The fields of two RaySetups whose bits differ (floats compared as
+    int32, NaN included)."""
+    def bits(t):
+        t = t.cpu()
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+    return [f for f in a._fields
+            if not torch.equal(bits(getattr(a, f)), bits(getattr(b, f)))]
+
+
+def check_kernel_setup(name, spec, origin, cloud):
+    """The card's setup (the setup kernel, after the product kernel's X_GC)
+    against the plain setup on the card from the same X_GC, every field
+    bitwise; the setup kernel launched once and the product kernel twice
+    (the grid's inverse and the composition)."""
+    from voxelized_geometry_tools_tpu_torch.kernels import (
+        ray_setup, transform_product)
+    from voxelized_geometry_tools_tpu_torch.ops import voxelize
+    launched = (ray_setup.launches, transform_product.launches)
+    got = voxelize.ray_setup(spec, origin, cloud)
+    products = transform_product.launches - launched[1]
+    if ray_setup.launches != launched[0] + 1 or products != 2:
+        raise AssertionError(f"{name}: the setup launched the setup kernel "
+                             f"{ray_setup.launches - launched[0]} times and "
+                             f"the product kernel {products} times")
+    plain = voxelize.ray_setup_plain(
+        spec, voxelize._grid_frame_transform(origin, cloud), cloud.points,
+        cloud.max_range)
+    differ = setup_fields_differing(got, plain)
+    if differ:
+        raise AssertionError(f"{name}: the setup kernel differs from the "
+                             f"plain setup on the card in {differ}")
+    return got
+
+
 def carve_fn(spec, setup, n_steps, run, zero=True):
     """One carve of ``setup`` into fresh grids by ``run``: the plain walk
     adds into grids zeroed first (``zero``); the tiled kernel and its plain
@@ -2042,7 +2090,7 @@ def phase_carve():
         refs["CPU plain walk"] = voxelize.raycast_pointcloud(
             spec, eye.cpu(), host)
         cpu_walk_s = time.monotonic() - t0
-        dev_setup = voxelize.ray_setup(spec, eye, cloud)
+        dev_setup = check_kernel_setup(name, spec, eye, cloud)
         model = carve_fn(spec, dev_setup, n_steps, carve.carve_tiled_plain,
                          zero=False)
         model()
@@ -2087,7 +2135,8 @@ def phase_carve():
         bound_ms, bound_by = carve_bound(spec, dev_setup, visits)
         tiled_ms = float(np.mean(times["carve_tiled"]))
         log(f"carve {name}: {n_rays} rays into {CARVE_N}^3, tiled kernel "
-            f"bitwise equal to {', '.join(refs)}, setup equal to the CPU's; "
+            f"bitwise equal to {', '.join(refs)}, the setup kernel's setup "
+            f"equal to the plain setup on the card and to the CPU's; "
             f"{visits} visits ({visits / n_rays:.1f} a ray); tiled kernel "
             f"{times['carve_tiled']} ms = "
             f"{n_rays / (tiled_ms / 1e3):.4e} rays/s "
@@ -2131,7 +2180,8 @@ def phase_pipeline(camera):
     filled-count invariant, the phase times and peak device memory; the
     tiled kernel's time on camera 0."""
     from voxelized_geometry_tools_tpu_torch import GridSpec, OccupancyMap
-    from voxelized_geometry_tools_tpu_torch.kernels import carve, fusion_filter
+    from voxelized_geometry_tools_tpu_torch.kernels import (
+        carve, fusion_filter, transform_product)
     from voxelized_geometry_tools_tpu_torch.models import fusion_pipeline
     from voxelized_geometry_tools_tpu_torch.ops import (backends, edt, render,
                                                         voxelize)
@@ -2149,6 +2199,7 @@ def phase_pipeline(camera):
     torch.cuda.reset_peak_memory_stats()
     runtimes = []
     reset_launches()
+    products = transform_product.launches
     t0 = time.monotonic()
     with torch.no_grad():
         out = fusion_pipeline.reconstruct(env, clouds, camera, voxelizer=vox,
@@ -2156,11 +2207,12 @@ def phase_pipeline(camera):
     torch.cuda.synchronize()
     step_s = time.monotonic() - t0
     counts = read_launches()
+    products = transform_product.launches - products
     peak = torch.cuda.max_memory_allocated()
-    if counts["carve_tiled"] != len(clouds):
+    if (counts["ray_setup"], counts["carve_tiled"]) != (len(clouds),) * 2:
         raise AssertionError(f"the pipeline's carve launches: {counts}, "
-                             f"expected the tiled kernel once for each of "
-                             f"{len(clouds)} cameras")
+                             f"expected the ray setup and the tiled kernel "
+                             f"once for each of {len(clouds)} cameras")
     if counts["edt_bestfirst_staged"] != 2:
         raise AssertionError(f"the pipeline's EDT launches: {counts}")
     if counts["fusion_filter"] != 1:
@@ -2303,6 +2355,59 @@ def phase_pipeline(camera):
         rows[kname] = {"launches": counts[kname], "ms": ms,
                        "plain_ms": plain_ms[kname], "bound_ms": bound_ms,
                        "bound_by": bound_by}
+    rows.update(setup_rows(spec, eye, clouds[0], counts["ray_setup"],
+                           products))
+    return rows
+
+
+def setup_rows(spec, origin, cloud, setup_launches, product_launches):
+    """The setup kernel and the transform product kernel at the main
+    path's shapes (a 640x480 camera's setup, the grid-frame 4x4 product),
+    queued, each against its plain version: the plain setup on the card
+    and the product formed on the host from the card's operands (two
+    copies down, one up, as before the kernel). Bounds: the bytes, each
+    input read once and each output written once."""
+    from voxelized_geometry_tools_tpu_torch.core import transforms
+    from voxelized_geometry_tools_tpu_torch.kernels import (
+        ray_setup, transform_product)
+    from voxelized_geometry_tools_tpu_torch.ops import voxelize
+
+    check_kernel_setup("pipeline camera 0", spec, origin, cloud)
+    inverse = transforms.invert_isometry(origin)
+    X_GC = transforms.compose(inverse, cloud.origin_transform)
+    n = cloud.points.shape[0]
+
+    def kernel():
+        ray_setup.ray_setup(X_GC, cloud.points, cloud.max_range,
+                            spec.counts, spec.resolution, spec.grid_sizes)
+
+    def plain():
+        voxelize.ray_setup_plain(spec, X_GC, cloud.points, cloud.max_range)
+
+    def product():
+        transforms.compose(inverse, cloud.origin_transform)
+
+    def host_product():
+        transforms._chain_on_host(inverse, cloud.origin_transform)
+
+    rows = {}
+    for kname, run, run_plain, n_bytes, launches, source, replaces in (
+            ("ray_setup", kernel, plain, ray_setup.RAY_BYTES * n,
+             setup_launches, "ray_setup.cu", SETUP_REPLACES),
+            ("transform_product", product, host_product, 3 * 16 * 4,
+             product_launches, "transform_product.cu", PRODUCT_REPLACES)):
+        ms_turns = [probes.queued_ms(run) for _ in range(2)]
+        plain_ms = cuda_ms(run_plain, 10)
+        ms = float(np.mean(ms_turns))
+        bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        log(f"{kname}, pipeline camera 0 ({n} rays): {ms_turns} ms queued "
+            f"(twice); plain version {plain_ms:.4f} ms a call; bound "
+            f"{bound_ms:.6f} ms by bytes ({n_bytes} B), reached "
+            f"{bound_ms / ms:.4f}; launches in the pipeline step "
+            f"{launches}")
+        rows[kname] = {"launches": launches, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": bound_ms, "bound_by": "bytes",
+                       "source": source, "replaces": replaces}
     return rows
 
 
@@ -2422,6 +2527,7 @@ def phase_rotated_carve():
         # The products rounded term by term (the port before the fix).
         flips = int((termwise_grid_frame(origin, host.origin_transform)
                      != x_cpu).sum())
+        check_kernel_setup(name, spec, origin_card, cloud)
         before = carve.launches_tiled
         t0 = time.monotonic()
         got = voxelize.raycast_pointcloud(spec, origin_card, cloud)
@@ -2441,8 +2547,10 @@ def phase_rotated_carve():
             if not grids_equal(got, ref):
                 raise AssertionError(f"{name}: the tiled carve kernel differs "
                                      f"from the {what}")
-        log(f"rotated carve, {name}: X_GC on the card equal to the CPU's "
-            f"(a term-by-term product differs in {flips} of 16 elements); "
+        log(f"rotated carve, {name}: X_GC on the card (the product kernel) "
+            f"equal to the CPU's (a term-by-term product differs in {flips} "
+            f"of 16 elements); the setup kernel's setup equal to the plain "
+            f"setup on the card; "
             f"tiled kernel ({kernel_ms:.2f} ms a call, setup included) "
             f"bitwise equal to the {' and the '.join(w for w, _ in refs)}; "
             f"free marks {int(got.seen_free.sum())}, filled marks "
@@ -2484,12 +2592,13 @@ def phase_mapper():
     frame_ms = [_timed(lambda c=c: mapper.integrate(c))[1] for c in clouds]
     counts = read_launches()
     filter_launches = counts["fusion_filter"]
-    if (counts["carve_tiled"], filter_launches) != (len(clouds),) * 2 or sum(
-            counts.values()) != 2 * len(clouds):
+    if (counts["ray_setup"], counts["carve_tiled"],
+            filter_launches) != (len(clouds),) * 3 or sum(
+            counts.values()) != 3 * len(clouds):
         raise AssertionError(f"the mapper's integrate launches: {counts}, "
-                             f"expected the tiled carve kernel and the fusion "
-                             f"filter kernel once for each of {len(clouds)} "
-                             "frames")
+                             f"expected the ray setup, the tiled carve and "
+                             f"the fusion filter kernels once for each of "
+                             f"{len(clouds)} frames")
     fold = OnlineMapper(spec, frame="world", device="cuda")
     _, fold_ms = _timed(lambda: fold.integrate_frames(clouds))
     occ = mapper.occupancy_map.occupancy
@@ -2947,8 +3056,9 @@ def queries_clouds(steps, sdf, table, spec, cams, batch):
     _step(steps, f"integrate_frames of {len(clouds)} rendered clouds",
           lambda: mapper.integrate_frames(clouds))
     counts = read_launches()
-    if (counts["carve_tiled"], counts["fusion_filter"]) != (len(clouds),) * 2 \
-            or sum(counts.values()) != 2 * len(clouds):
+    if (counts["ray_setup"], counts["carve_tiled"],
+            counts["fusion_filter"]) != (len(clouds),) * 3 \
+            or sum(counts.values()) != 3 * len(clouds):
         raise AssertionError(f"integrate_frames launches {counts}")
     eye = mapper.occupancy_map.origin_transform
     tiled = voxelize.raycast_pointcloud(spec, eye, clouds[0])
@@ -3870,7 +3980,8 @@ def geometry_mapper(steps, launches):
     _, counts = _counted(steps, f"OnlineMapper.integrate_frames "
                                 f"({len(clouds)} clouds)",
                          lambda: mapper.integrate_frames(clouds),
-                         {"carve_tiled": len(clouds),
+                         {"ray_setup": len(clouds),
+                          "carve_tiled": len(clouds),
                           "fusion_filter": len(clouds)})
     _add_launches(launches, counts)
     with torch.no_grad():
@@ -4205,9 +4316,10 @@ def phase_sharded(camera):
              for k in got["launches"][0]}
     for r in range(SHARDED_RANKS):
         launches = got["launches"][r]
-        # 4 clouds, one filter of their grids; 2 envelope passes and one
-        # combine for each of the 2 SDFs.
+        # 4 clouds (a setup and a carve each), one filter of their grids;
+        # 2 envelope passes and one combine for each of the 2 SDFs.
         if launches != {"edt_bestfirst_staged": 4,
+                        "ray_setup": len(cloud_args),
                         "carve_tiled": len(cloud_args), "fusion_filter": 1,
                         "edt_combine": 2}:
             raise AssertionError(f"rank {r} launches {launches}")
@@ -4416,10 +4528,14 @@ def main():
     # version's and the bound on the pipeline's first camera at 512^3. Every
     # comparison of it is bitwise (a difference raises). No single PyTorch
     # call computes the walk.
+    # The setup and transform product kernels: the pipeline's launches and
+    # the sharded worlds' (the setup's), their times at the main path's
+    # shapes and their plain versions'; every comparison of them is bitwise.
     for kname, row in carve_rows.items():
         kernels.append({
-            "name": kname, "route": "cuda", "source": CSRC + "carve.cu",
-            "replaces": CARVE_REPLACES,
+            "name": kname, "route": "cuda",
+            "source": CSRC + row.pop("source", "carve.cu"),
+            "replaces": row.pop("replaces", CARVE_REPLACES),
             "launches": row["launches"] + sharded_launches.get(kname, 0),
             "max_abs_err": 0.0, "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

@@ -178,7 +178,8 @@ def test_kernel_sources_include_only_shipped_headers():
     assert {s.stem for s in sources} == {"carve", "edt_bestfirst",
                                          "edt_combine", "edt_envelope",
                                          "edt_seed", "edt_windowed",
-                                         "fusion_filter", "probes"}
+                                         "fusion_filter", "probes",
+                                         "ray_setup", "transform_product"}
     for src in sources:
         for inc in re.findall(r'#include\s+"([^"]+)"', src.read_text()):
             assert inc.endswith(".cuh") and (build.SRC_DIR / inc).is_file()

@@ -17,8 +17,10 @@ product such as ``compose`` rounds each product and sums them in ``k``
 order; a float64 ``K = 4`` product with an odd column count (a 4x4 matrix
 times a vector) is neither, and is not formed by the port. :func:`matmul`
 reproduces each of these bit for bit, whatever the device (see
-:func:`_fma_chain` and :func:`_fma_chain_f64`), so grid-frame transforms,
-and every carve and query built on them, get the JAX package's bits.
+:func:`_fma_chain` and :func:`_fma_chain_f64`; on a CUDA card the chains
+are one launch of the transform product kernel,
+``kernels/transform_product.py``), so grid-frame transforms, and every
+carve and query built on them, get the JAX package's bits.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from fractions import Fraction
 import numpy as np
 import torch
 
+from ..kernels import transform_product
 from .constants import constant
 from .device import default_device
 
@@ -248,23 +251,31 @@ def _fma_chain_f64(a: np.ndarray, b: np.ndarray) -> np.ndarray:
 
 
 def _product(a: Tensor, b: Tensor) -> Tensor:
-    """``a @ b`` for ``[m, K] @ [K, n]``, formed on the host (a 4x4 chain
-    is some 140 elementwise operations, each a kernel launch on a card,
-    about 3 ms of host time; the copy to the host waits for the card once):
-    in float32 the FMA chain of :func:`_fma_chain`; in float64 with
-    ``K <= 3`` the FMA chain of :func:`_fma_chain_f64`. Otherwise the
-    products are rounded, then summed in ``k`` order."""
-    if a.dtype == b.dtype == torch.float32:
-        out = _fma_chain(a.detach().cpu().numpy(), b.detach().cpu().numpy())
-        return torch.from_numpy(out).to(a.device)
-    if a.dtype == b.dtype == torch.float64 and a.shape[1] <= 3:
-        out = _fma_chain_f64(a.detach().cpu().numpy(),
-                             b.detach().cpu().numpy())
-        return torch.from_numpy(out).to(a.device)
+    """``a @ b`` for ``[m, K] @ [K, n]``: in float32 the FMA chain of
+    :func:`_fma_chain`; in float64 with ``K <= 3`` the FMA chain of
+    :func:`_fma_chain_f64`. Otherwise the products are rounded, then
+    summed in ``k`` order. A chain of two tensors on one CUDA device is
+    one launch of the transform product kernel, with no host copy; other
+    chains are formed on the host (on a card as elementwise operations a
+    4x4 chain would be some 140 launches)."""
+    chain = (a.dtype == b.dtype == torch.float32
+             or (a.dtype == b.dtype == torch.float64 and a.shape[1] <= 3))
+    if chain and a.is_cuda and a.device == b.device:
+        return transform_product.fma_chain_product(a.detach(), b.detach())
+    if chain:
+        return _chain_on_host(a, b)
     out = a[:, :1] * b[:1, :]
     for k in range(1, a.shape[1]):
         out = out + a[:, k:k + 1] * b[k:k + 1, :]
     return out
+
+
+def _chain_on_host(a: Tensor, b: Tensor) -> Tensor:
+    """The FMA chain of :func:`_product` formed in numpy on the host, on
+    ``a``'s device (the transform product kernel's plain version)."""
+    chain = _fma_chain if a.dtype == torch.float32 else _fma_chain_f64
+    out = chain(a.detach().cpu().numpy(), b.detach().cpu().numpy())
+    return torch.from_numpy(out).to(a.device)
 
 
 class _Matmul(torch.autograd.Function):

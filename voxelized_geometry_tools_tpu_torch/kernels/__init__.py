@@ -5,4 +5,5 @@ Sources live in ``csrc/`` and are compiled with ``nvcc`` at first launch
 """
 
 from . import (carve, edt_bestfirst, edt_combine,  # noqa: F401
-               edt_envelope, edt_seed, edt_windowed, fusion_filter, probes)
+               edt_envelope, edt_seed, edt_windowed, fusion_filter, probes,
+               ray_setup, transform_product)

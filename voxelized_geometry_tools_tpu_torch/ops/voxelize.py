@@ -18,8 +18,10 @@ Port of ``voxelized_geometry_tools_tpu/ops/voxelize.py``, eagerly:
 Every mapping path carves by :func:`_carve_cloud` and fuses by
 :func:`_carve_and_filter`.
 
-Every carve gives the same bits: the setup (:func:`_prepare_rays`) and the
-walk's closed-form crossing times are the JAX package's expressions in its
+Every carve gives the same bits: the setup (:func:`_prepare_rays` and
+:func:`_ray_visits`; on a CUDA cloud its kernel ``kernels/csrc/
+ray_setup.cu``, one launch per cloud, with the same bits) and the walk's
+closed-form crossing times are the JAX package's expressions in its
 operation order, each operation rounded on its own. (Compiled XLA CPU code
 contracts ``a * b + c`` into one fused multiply-add, so the JAX package
 matches the port bit for bit when it runs op by op, ``jax.disable_jit()``;
@@ -45,10 +47,11 @@ from ..core.grid import GridSpec
 from ..core.maps import OccupancyMap
 from ..kernels import carve
 from ..kernels import fusion_filter
+from ..kernels import ray_setup as setup_kernel
 from ..kernels.carve import RaySetup, segment_steps
+from ..kernels.edt_combine import correctly_rounded_sqrt
 from ..kernels.fusion_filter import SeenAs, counts_seen_as  # noqa: F401
 from ..utils.profiling import _span
-from .edt import _sqrt
 
 Tensor = torch.Tensor
 
@@ -82,7 +85,8 @@ class PointCloud:
     def create(points, origin_transform=None,
                max_range: float = _INF, device=None) -> "PointCloud":
         """On ``device``; None means the device of ``points`` if it is a
-        tensor, else the CUDA card."""
+        tensor, else the CUDA card. The range is filled in on the device
+        (no host copy)."""
         device = default_device(device, like=points)
         with _span("ingest"):
             if isinstance(points, Tensor):
@@ -95,10 +99,14 @@ class PointCloud:
                 pose = torch.eye(4, dtype=torch.float32, device=device)
             else:
                 pose = _as_f32(origin_transform, device)
+            # Rounded to float32 here (torch.full refuses a value that
+            # overflows it), as torch.tensor would round it.
+            with np.errstate(over="ignore"):
+                rounded = float(np.float32(max_range))
             return PointCloud(points=pts, origin_transform=pose,
-                              max_range=torch.tensor(float(max_range),
-                                                     dtype=torch.float32,
-                                                     device=device))
+                              max_range=torch.full((), rounded,
+                                                   dtype=torch.float32,
+                                                   device=device))
 
 
 class TrackingGrid(NamedTuple):
@@ -133,7 +141,9 @@ def _sync(device) -> None:
 
 
 def _grid_frame_transform(grid_origin_transform, cloud: PointCloud) -> Tensor:
-    """``X_GC = inverse(X_WG) @ X_WC``, on the cloud's device."""
+    """``X_GC = inverse(X_WG) @ X_WC``, on the cloud's device (on a card
+    without a host copy: the products are the transform product kernel's,
+    ``core/transforms.matmul``)."""
     g = _as_f32(grid_origin_transform, cloud.points.device)
     return transforms.compose(transforms.invert_isometry(g),
                               cloud.origin_transform)
@@ -196,7 +206,7 @@ def _norm3_canonical(v: Tensor) -> Tensor:
     hi = torch.maximum(torch.maximum(a, b), c)
     mid = torch.maximum(torch.minimum(a, b),
                         torch.minimum(torch.maximum(a, b), c))
-    return _sqrt((lo + mid) + hi, torch.float32)
+    return correctly_rounded_sqrt((lo + mid) + hi, torch.float32)
 
 
 def _sum3(v: Tensor) -> Tensor:
@@ -235,13 +245,14 @@ def _prepare_rays(spec: GridSpec, X_GC: Tensor, points: Tensor,
     # plus two voxels, so the integer index math stays in range. ``ray``
     # itself is not clamped.
     corner = torch.maximum(torch.abs(p_gco), torch.abs(grid_sizes - p_gco))
-    far_corner = _sqrt(_sum3(corner * corner), torch.float32)
+    far_corner = correctly_rounded_sqrt(_sum3(corner * corner),
+                                        torch.float32)
     l_safe = far_corner + _f32(2.0 * spec.resolution, dev)
     off = p_final - p_gco
     # Overflow-robust norm: normalize by the max-abs component first.
     m_abs = torch.amax(torch.abs(off), dim=-1)
     offn = off / torch.maximum(m_abs, tiny)[:, None]
-    d_unit = _sqrt(_sum3(offn * offn), torch.float32)
+    d_unit = correctly_rounded_sqrt(_sum3(offn * offn), torch.float32)
     too_far = m_abs * torch.minimum(d_unit, _f32(2.0, dev)) > l_safe
     clamped_final = (p_gco + offn
                      * (l_safe / torch.maximum(d_unit, tiny))[:, None])
@@ -362,8 +373,8 @@ def raycast_pointcloud(spec: GridSpec, grid_origin_transform,
     chunk = _balanced_chunk(n_rays, ray_chunk)
     for lo in range(0, n_rays, chunk):
         with _span("fusion.ray_setup"):
-            setup = _ray_visits(spec, *_prepare_rays(
-                spec, X_GC, cloud.points[lo:lo + chunk], cloud.max_range))
+            setup = ray_setup_plain(spec, X_GC, cloud.points[lo:lo + chunk],
+                                    cloud.max_range)
         with _span("fusion.carve"):
             carve.carve_plain(spec.counts, setup, n_steps, free, filled)
     return out
@@ -374,7 +385,8 @@ def _carve_cloud(spec: GridSpec, grid_origin_transform, cloud: PointCloud,
                  run_axis: Union[None, int, str],
                  out: Optional[TrackingGrid] = None) -> TrackingGrid:
     """The carve route of every fusion path: one cloud into ``out`` (or
-    fresh grids). A CUDA cloud takes the setup and one tiled carve kernel
+    fresh grids). A CUDA cloud takes the grid-frame transform (two product
+    kernel launches), one setup kernel launch and one tiled carve kernel
     launch; a CPU cloud the column carve along ``run_axis``, or the plain
     walk where it is None. All give the same bits."""
     dev = cloud.points.device
@@ -405,11 +417,24 @@ def _carve_cloud(spec: GridSpec, grid_origin_transform, cloud: PointCloud,
 def ray_setup(spec: GridSpec, grid_origin_transform,
               cloud: PointCloud) -> RaySetup:
     """The carve kernel's per-ray inputs for every ray of ``cloud``, as
-    :func:`raycast_pointcloud` makes them."""
+    :func:`raycast_pointcloud` makes them: on a CUDA cloud one launch of
+    the setup kernel (``kernels/ray_setup.py``), on a CPU cloud
+    :func:`ray_setup_plain`. Both give the same bits."""
     spec.enforce_uniform_voxel_size()
     X_GC = _grid_frame_transform(grid_origin_transform, cloud)
-    return _ray_visits(spec, *_prepare_rays(spec, X_GC, cloud.points,
-                                            cloud.max_range))
+    if cloud.points.is_cuda:
+        return setup_kernel.ray_setup(
+            X_GC, cloud.points,
+            cloud.max_range.to(cloud.points.device, torch.float32),
+            spec.counts, spec.resolution, spec.grid_sizes)
+    return ray_setup_plain(spec, X_GC, cloud.points, cloud.max_range)
+
+
+def ray_setup_plain(spec: GridSpec, X_GC: Tensor, points: Tensor,
+                    max_range: Tensor) -> RaySetup:
+    """The setup in plain PyTorch, on any device: :func:`_prepare_rays`,
+    then :func:`_ray_visits`. The setup kernel's plain version."""
+    return _ray_visits(spec, *_prepare_rays(spec, X_GC, points, max_range))
 
 
 # -- Column-marching carve ---------------------------------------------------

@@ -110,16 +110,20 @@ def render_grid(mesh: Mesh, distances: torch.Tensor, spec: GridSpec, origin,
 
 
 def _launches() -> dict:
-    from ..kernels import carve, edt_bestfirst, edt_combine, fusion_filter
+    from ..kernels import (carve, edt_bestfirst, edt_combine, fusion_filter,
+                           ray_setup)
     return {"edt_bestfirst_staged": edt_bestfirst.launches_staged,
+            "ray_setup": ray_setup.launches,
             "carve_tiled": carve.launches_tiled,
             "fusion_filter": fusion_filter.launches,
             "edt_combine": edt_combine.launches}
 
 
 def _reset_launches() -> None:
-    from ..kernels import carve, edt_bestfirst, edt_combine, fusion_filter
+    from ..kernels import (carve, edt_bestfirst, edt_combine, fusion_filter,
+                           ray_setup)
     edt_bestfirst.launches_staged = 0
+    ray_setup.launches = 0
     carve.launches_tiled = 0
     fusion_filter.launches = 0
     edt_combine.launches = 0
